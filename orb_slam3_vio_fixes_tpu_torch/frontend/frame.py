@@ -1,0 +1,116 @@
+"""Stereo frame construction (port of orb_slam3_vio_fixes_tpu/frontend/frame.py:
+FrameData, sad_subpixel, build_stereo_frame_impl)."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from orb_slam3_vio_fixes_tpu_torch.ops import image as image_ops
+from orb_slam3_vio_fixes_tpu_torch.ops import matching, orb
+from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera
+
+
+class FrameData(NamedTuple):
+    """Per-frame fixed-capacity feature arrays (N = n_features)."""
+
+    uv: torch.Tensor      # (N, 2) level-0 pixel coords (left cam)
+    ur: torch.Tensor      # (N,) right-cam u (-1 mono / unmatched)
+    depth: torch.Tensor   # (N,) stereo depth (-1 unknown)
+    octave: torch.Tensor  # (N,) int32
+    angle: torch.Tensor   # (N,) float32
+    desc: torch.Tensor    # (N, 8) int32 bit patterns
+    valid: torch.Tensor   # (N,) bool
+    ts: torch.Tensor      # () float32 timestamp
+
+
+def to_f32(img: torch.Tensor) -> torch.Tensor:
+    """uint8 camera gray or uint16 fixed point (value * 256) -> float32."""
+    x = img.to(torch.float32)
+    if img.dtype == torch.uint16:
+        x = x * (1.0 / 256.0)
+    return x
+
+
+SAD_W = 5
+SAD_SLIDE = 5
+
+
+def _windows(img: torch.Tensor, pad: int, y0: torch.Tensor, x0: torch.Tensor,
+             height: int, width: int) -> torch.Tensor:
+    """(N, height, width) windows of the edge-padded img with top-left corner
+    (y0, x0) in padded coordinates, start clamped into range like
+    jax.lax.dynamic_slice."""
+    padded = F.pad(img[None, None], (pad,) * 4, mode="replicate")[0, 0]
+    Hp, Wp = padded.shape
+    y0 = y0.clamp(0, Hp - height)
+    x0 = x0.clamp(0, Wp - width)
+    yy = y0[:, None, None] + torch.arange(height, device=img.device)[None, :, None]
+    xx = x0[:, None, None] + torch.arange(width, device=img.device)[None, None, :]
+    return padded.reshape(-1)[yy * Wp + xx]
+
+
+def sad_subpixel(img_l, img_r, uv_l, ur0, valid):
+    """Sub-pixel disparity by sliding 11x11 SAD over +-5 px and a parabola
+    fit, then the SAD-median outlier sweep. Returns refined ur (-1 invalid)."""
+    pad = SAD_W + SAD_SLIDE + 1
+    ui = torch.round(uv_l[:, 0]).to(torch.int64)
+    vi = torch.round(uv_l[:, 1]).to(torch.int64)
+    uri = torch.round(ur0).to(torch.int64)
+    patch_l = _windows(img_l, pad, vi + pad - SAD_W, ui + pad - SAD_W,
+                       2 * SAD_W + 1, 2 * SAD_W + 1)
+    strip_r = _windows(img_r, pad, vi + pad - SAD_W,
+                       uri - SAD_SLIDE + pad - SAD_W, 2 * SAD_W + 1,
+                       2 * (SAD_W + SAD_SLIDE) + 1)
+    cl = patch_l[:, SAD_W, SAD_W][:, None, None]
+    sads = []
+    for off in range(2 * SAD_SLIDE + 1):
+        win = strip_r[:, :, off:off + 2 * SAD_W + 1]
+        cr = win[:, SAD_W, SAD_W][:, None, None]
+        sads.append(((patch_l - cl) - (win - cr)).abs().sum(dim=(1, 2)))
+    sad = torch.stack(sads, dim=1)
+    best = torch.argmin(sad, dim=1)
+    interior = (best > 0) & (best < 2 * SAD_SLIDE)
+    bi = best.clamp(1, 2 * SAD_SLIDE - 1)
+    s0 = torch.gather(sad, 1, bi[:, None])[:, 0]
+    sm = torch.gather(sad, 1, (bi - 1)[:, None])[:, 0]
+    sp = torch.gather(sad, 1, (bi + 1)[:, None])[:, 0]
+    denom = sm + sp - 2.0 * s0
+    delta = torch.where(denom.abs() > 1e-6, (sm - sp) / (2.0 * denom),
+                        torch.zeros_like(denom))
+    ok = valid & interior & (delta.abs() <= 1.0)
+    ur_ref = uri.to(torch.float32) + (bi.to(torch.float32) - SAD_SLIDE) + delta
+    med = matching.nanmedian(torch.where(ok, s0, torch.full_like(s0, float("nan"))))
+    med = torch.nan_to_num(med, nan=1e9)
+    ok &= s0 <= 2.1 * med
+    # apply the integer-anchored displacement to the float keypoint x (see
+    # the reference on the fractional-x bias this avoids)
+    disp_int = ui.to(torch.float32) - ur_ref
+    ur_out = uv_l[:, 0] - disp_int
+    return torch.where(ok, ur_out, torch.full_like(ur_out, -1.0))
+
+
+def build_stereo_frame_impl(img_l: torch.Tensor, img_r: torch.Tensor,
+                            ts: torch.Tensor, cam: Camera, bf: float,
+                            cfg: orb.ORBConfig) -> FrameData:
+    """ORB on both eyes (one batched extraction) + row-banded stereo match +
+    SAD sub-pixel refinement. Disparity bounds: [0, bf / baseline = fx]."""
+    img_l = to_f32(img_l)
+    img_r = to_f32(img_r)
+    fl, fr = orb.extract_pair(img_l, img_r, cfg)
+    sf = image_ops.scale_factors(cfg.n_levels, cfg.scale, device=img_l.device)
+    baseline = bf / cam.fx
+    max_disp = bf / baseline
+    ur, disp, _ = matching.stereo_row_match(
+        fl.uv, fl.valid, fl.desc, fl.octave, fr.uv, fr.valid, fr.desc,
+        fr.octave, sf, 0.0, max_disp)
+    ur = sad_subpixel(img_l, img_r, fl.uv, ur, (disp > 0) & fl.valid)
+    disp = torch.where(ur >= 0, fl.uv[:, 0] - ur, torch.full_like(ur, -1.0))
+    disp = torch.where((ur >= 0) & (disp < 0.01), torch.full_like(disp, 0.01), disp)
+    depth = torch.where(disp > 0, bf / torch.clamp(disp, min=1e-6),
+                        torch.full_like(disp, -1.0))
+    return FrameData(uv=fl.uv, ur=torch.where(disp > 0, ur, torch.full_like(ur, -1.0)),
+                     depth=depth, octave=fl.octave, angle=fl.angle,
+                     desc=fl.desc, valid=fl.valid, ts=ts)
