@@ -7,27 +7,37 @@ Run from the repository root on a machine with a CUDA card:
 Phases, in order (any failure raises and the script exits non-zero):
   1. card facts (nvidia-smi name and power limit); no CUDA -> exit non-zero;
   2. build the hand-written kernels from orb_slam3_vio_fixes_tpu_torch/csrc;
-  3. K1 (FAST score) against its plain PyTorch twin, exact, on random atlases
-     and on a rendered frame's atlases at the main path's shape;
-  4. K2 (masked Hamming best-2, row and column passes) against its plain
-     twin, exact, at 1024x1024 and 2048x1024 with random, dense, sparse and
-     tie-heavy inputs;
+  3. K1 (FAST score) against its plain PyTorch twin, exact, on random and
+     half-integer atlases at the main path's shape, at W = 751 and at
+     H = 7, W = 37, and on rendered frames' atlases;
+  4. K2 (fused masked Hamming best-2 + column argmin, one launch) against its
+     plain twin, exact, with and without columns: 1024x1024 and 2048x1024
+     with random, dense, sparse, tie-heavy, nearly and wholly masked inputs;
+     Q = T = 1, T = 1000 and 2048, Q = 300; and the two masks captured from
+     the main path (frame 0's stereo row match, a local-map search);
   5. the main path: the bench scenario (80 frames of 752x480 stereo, 1024
      features, 8 levels) through the port's StereoTracker in sync mode, with
      the kernel launch counters reset before and read after; the final state
-     must be OK, >= 3 keyframes, K1 launched once per frame, K2 launched, and
-     the ATE within the stated bound of the JAX package's;
+     must be OK, >= 3 keyframes, K1 launched once per frame, K2 at least
+     once per matcher call that the tracker's control flow always makes (and
+     once with columns per stereo and triangulation call), and the ATE
+     within the stated bound of the JAX package's;
   6. timing: a second pass with a fresh tracker (fps, p50/p95 frame ms) and
-     each kernel against its plain twin at the path's shapes.
+     each kernel at the path's shapes: device time per call back to back
+     (CUDA events) and the host's time to enqueue it, the kernel's own
+     execution time (torch.profiler), bound, plain twin's time and the first
+     slice's recorded time.
 
 The last lines are one JSON object with the kernels, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -41,6 +51,25 @@ ATE_FACTOR = 1.5
 ATE_SLACK_M = 0.005
 
 N_FRAMES = 80
+
+# The card's peaks for the bounds: HBM3 rate of the H100 SXM, and its INT32
+# rate, a quarter of the 67 TFLOP/s float32 rate (an FMA counts 2 flops, and
+# an SM has 64 INT32 lanes beside 128 FP32 lanes).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+# K1 per interior pixel: 46 packed min/max (22 + 16 min3, 8 max3 over the 16
+# arcs and the centre) + 1 subtraction of the centre; K2 per admissible pair:
+# 8 XOR + 8 POPC + 7 ADD.
+K1_OPS_PER_PX = 47
+K2_OPS_PER_PAIR = 23
+
+# Device ms of the first slice's kernels (PERF.md, NVIDIA H100 80GB HBM3 at
+# 700 W), at the shapes timed below.
+PR1_MS = {"fast_score 2x2380x752": 0.0553,
+          "hamming_match 1024x1024 cols": 0.0249 + 0.0452,
+          "hamming_match 1024x1024 rows": 0.0249,
+          "hamming_match 2048x1024 rows": 0.0254,
+          "hamming_match 2048x1024 cols": 0.0254 + 0.0874}
 
 
 def log(msg: str) -> None:
@@ -60,18 +89,60 @@ def card_facts() -> str:
     return out[0].strip()
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device milliseconds per call over `iters` calls after a warm-up."""
+def cuda_ms(fn, iters: int, host: bool = False):
+    """Mean device milliseconds per call over `iters` back-to-back calls.
+    The stream is held busy (torch.cuda._sleep) while the host enqueues
+    them, so the events time the device and not the host's launch rate.
+    With `host`, also the host's milliseconds per call to enqueue them."""
     fn()
     sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(iters * 4e5))      # ~0.2 ms of cycles per call
     start.record()
+    h0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_ms = 1e3 * (time.perf_counter() - h0) / iters
     end.record()
     sync()
-    return start.elapsed_time(end) / iters
+    dev_ms = start.elapsed_time(end) / iters
+    return (dev_ms, host_ms) if host else dev_ms
+
+
+def profiled_ms(fn, iters: int = 20) -> dict:
+    """Device ms per call of each kernel (and memset) that `fn` launches, from
+    torch.profiler's kernel records: execution alone, without the gaps
+    between launches that the events of cuda_ms include."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    return {re.sub(r"^.*?_cu_[0-9a-f]{8}\d+", "", e.key)[:40]:
+            e.device_time_total / 1e3 / iters
+            for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0}
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """Least ms the card could take: bytes over HBM, int ops over INT32."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / INT32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def k1_bound(x) -> tuple[float, str]:
+    b, h, w = x.shape
+    interior = b * max(h - 6, 0) * max(w - 6, 0)
+    return bound(8.0 * b * h * w, K1_OPS_PER_PX * interior)
+
+
+def k2_bound(dq, dt, mask, cols) -> tuple[float, str]:
+    Q, T = mask.shape
+    n_bytes = Q * T + 32 * (Q + T) + 16 * Q + (8 * T if cols else 0)
+    return bound(n_bytes, K2_OPS_PER_PAIR * int(mask.sum()))
 
 
 def make_sequence(n_frames: int = N_FRAMES):
@@ -118,12 +189,20 @@ def check_k1(seq, device) -> dict:
     from orb_slam3_vio_fixes_tpu_torch.ops import fast
 
     g = torch.Generator(device=device).manual_seed(0)
+
+    def ints(shape, half=False):
+        x = torch.randint(0, 511 if half else 256, shape, generator=g, device=device)
+        return x.to(torch.float32) * (0.5 if half else 1.0)
+
     cases = {
-        "random": torch.randint(0, 256, (2, 2380, 752), generator=g,
-                                device=device).to(torch.float32),
+        "random": ints((2, 2380, 752)),
         # half-integers exercise the round-half-to-even step
-        "random_half": torch.randint(0, 511, (2, 2380, 752), generator=g,
-                                     device=device).to(torch.float32) * 0.5,
+        "random_half": ints((2, 2380, 752), half=True),
+        # W % 4 != 0 takes the scalar staging path; H, W below one tile
+        "w751": ints((2, 2380, 751)),
+        "w751_half": ints((2, 2380, 751), half=True),
+        "h7_w37": ints((2, 7, 37)),
+        "h7_w37_half": ints((2, 7, 37), half=True),
         "frame0": atlases_of(seq, 0, device),
         "frame_last": atlases_of(seq, seq.imgs_l.shape[0] - 1, device),
     }
@@ -139,10 +218,7 @@ def check_k1(seq, device) -> dict:
         if n_bad:
             raise RuntimeError(f"K1 disagrees with its plain twin on {name}")
         err = max(err, e)
-    x = cases["frame0"]
-    return {"max_abs_err": err,
-            "ms": cuda_ms(lambda: fast.fast_score_batch(x), 50),
-            "plain_ms": cuda_ms(lambda: fast.fast_score_plain(x), 10)}
+    return {"max_abs_err": err}
 
 
 def _k2_inputs(g, Q, T, kind, device):
@@ -160,43 +236,86 @@ def _k2_inputs(g, Q, T, kind, device):
     else:
         dq, dt = rnd(Q), rnd(T)
     density = {"dense": 1.0, "random": 0.3, "sparse": 0.002, "ties": 0.5,
-               "empty_rows": 0.0005}[kind]
+               "empty_rows": 0.0005, "none": 0.0}[kind]
     mask = torch.rand((Q, T), generator=g, device=device) < density
     return dq, dt, mask
 
 
-def check_k2(device) -> tuple[dict, dict]:
+def _k2_compare(label, dq, dt, mask) -> int:
+    """Fused kernel vs plain twin, with and without columns; max abs error."""
     from orb_slam3_vio_fixes_tpu_torch.ops import matching
 
+    names = ("best_idx", "best", "second", "second_idx", "col_idx")
+    err = 0
+    for cols in (False, True):
+        got = matching.hamming_match(dq, dt, mask, cols)
+        ref = matching.match_plain(dq, dt, mask, cols)
+        sync()
+        if not cols and got[4] is not None:
+            raise RuntimeError("K2 returned columns it was not asked for")
+        pairs = [(n, a, b) for n, a, b in zip(names, got, ref) if b is not None]
+        bad = [n for n, a, b in pairs if not torch.equal(a, b)]
+        ties = int((ref[1] == ref[2]).sum())
+        log(f"[k2] {label} cols={cols}: mismatching={bad} rows_with_tie={ties}")
+        if bad:
+            raise RuntimeError(f"K2 disagrees with its plain twin on {label}: {bad}")
+        err = max(err, max(int((a - b).abs().max()) for _, a, b in pairs))
+    return err
+
+
+def check_k2(device, path_masks) -> dict:
     g = torch.Generator(device=device).manual_seed(1)
-    err_r = err_c = 0
-    for Q, T in ((1024, 1024), (2048, 1024)):
-        for kind in ("random", "dense", "sparse", "ties", "empty_rows"):
-            dq, dt, mask = _k2_inputs(g, Q, T, kind, device)
-            got = matching.hamming_best2(dq, dt, mask)
-            ref = matching.best2_plain(dq, dt, mask)
-            gc = matching.hamming_argmin_cols(dq, dt, mask)
-            rc = matching.col_argmin_plain(dq, dt, mask)
-            sync()
-            bad = [name for name, a, b in zip(
-                ("best_idx", "best", "second", "second_idx"), got, ref)
-                if not torch.equal(a, b)]
-            if not torch.equal(gc, rc):
-                bad.append("col_idx")
-            ties = int((ref[1] == ref[2]).sum())
-            log(f"[k2] {Q}x{T} {kind}: mismatching={bad} rows_with_tie={ties}")
-            if bad:
-                raise RuntimeError(f"K2 disagrees with its plain twin: {bad}")
-            err_r = max(err_r, max(int((a - b).abs().max()) for a, b in zip(got, ref)))
-            err_c = max(err_c, int((gc - rc).abs().max()))
-    dq, dt, mask = _k2_inputs(g, 2048, 1024, "random", device)
-    row = {"max_abs_err": float(err_r),
-           "ms": cuda_ms(lambda: matching.hamming_best2(dq, dt, mask), 50),
-           "plain_ms": cuda_ms(lambda: matching.best2_plain(dq, dt, mask), 10)}
-    col = {"max_abs_err": float(err_c),
-           "ms": cuda_ms(lambda: matching.hamming_argmin_cols(dq, dt, mask), 50),
-           "plain_ms": cuda_ms(lambda: matching.col_argmin_plain(dq, dt, mask), 10)}
-    return row, col
+    err = 0
+    shapes = [((Q, 1024), kind) for Q in (1024, 2048)
+              for kind in ("random", "dense", "sparse", "ties", "empty_rows", "none")]
+    shapes += [((1, 1), "dense"), ((1024, 1000), "random"), ((1024, 2048), "random"),
+               ((1024, 2048), "ties"), ((300, 1024), "random"), ((300, 1000), "ties")]
+    for (Q, T), kind in shapes:
+        err = max(err, _k2_compare(f"{Q}x{T} {kind}", *_k2_inputs(g, Q, T, kind, device)))
+    for name, (dq, dt, mask, _) in path_masks.items():
+        err = max(err, _k2_compare(f"path {name} {tuple(mask.shape)}", dq, dt, mask))
+    return {"max_abs_err": float(err)}
+
+
+def capture_path_masks(seq, device) -> dict:
+    """Frame 0's stereo row-match mask and the first local-map search mask of
+    a fresh tracker's first frames: the masks the main path gives K2."""
+    from orb_slam3_vio_fixes_tpu_torch.frontend import tracking
+    from orb_slam3_vio_fixes_tpu_torch.ops import matching
+
+    out, caller = {}, []
+    match = matching.hamming_match
+
+    def record(desc_q, desc_t, mask, cols):
+        if caller and caller[-1] not in out:
+            out[caller[-1]] = (desc_q.clone(), desc_t.clone(), mask.clone(), cols)
+        return match(desc_q, desc_t, mask, cols)
+
+    def tagged(key, fn):
+        def call(*args, **kw):
+            caller.append(key)
+            try:
+                return fn(*args, **kw)
+            finally:
+                caller.pop()
+        return call
+
+    tr = build_tracker(seq, device)
+    with mock.patch.object(matching, "hamming_match", record), \
+            mock.patch.object(matching, "stereo_row_match",
+                              tagged("stereo_frame0", matching.stereo_row_match)), \
+            mock.patch.object(tracking, "local_map_search",
+                              tagged("local_map_search", tracking.local_map_search)):
+        for i in range(3):
+            tr.process_stereo(seq.imgs_l[i], seq.imgs_r[i], seq.ts[i])
+    sync()
+    for key in ("stereo_frame0", "local_map_search"):
+        if key not in out:
+            raise RuntimeError(f"no {key} matcher call in the first frames")
+        _, _, mask, cols = out[key]
+        log(f"[k2] path mask {key}: shape={tuple(mask.shape)} cols={cols} "
+            f"density={float(mask.float().mean())!r} admissible={int(mask.sum())}")
+    return out
 
 
 def run_pass(seq, device):
@@ -221,48 +340,76 @@ def main_path(seq, device) -> dict:
     sync()
     counts = kernels.launch_counts()
     wall = time.perf_counter() - t0
+    # Matcher calls the control flow always makes: a stereo match per frame
+    # (with columns), a motion-model and a local-map search per tracked
+    # frame, and per inserted keyframe a triangulation (with columns) and a
+    # fusion for each of 3 neighbour slots. Retries and the reference-KF
+    # fallback add more.
+    n_ins = tr._kf_seq
+    min_calls = N_FRAMES + 2 * (N_FRAMES - 1) + 6 * n_ins
+    min_cols = N_FRAMES + 3 * n_ins
     traj = tr.trajectory
     est_ts = np.array([x[0] for x in traj])
     est_pos = np.array([-x[1].T @ x[2] for x in traj])
     if not np.all(np.isfinite(est_pos)) or est_pos.shape != (N_FRAMES, 3):
         raise RuntimeError(f"bad trajectory: shape {est_pos.shape}")
     rmse, _, n = ate.ate_rmse(seq.ts, seq.t_wc, est_ts, est_pos)
-    bound = ATE_FACTOR * JAX_ATE_M + ATE_SLACK_M
+    ate_bound = ATE_FACTOR * JAX_ATE_M + ATE_SLACK_M
     log(f"[main] frames={N_FRAMES} wall={wall:.1f}s state={tr.track_state} "
         f"keyframes={len(tr.kf_order)} n_kf={tr.n_kf} landmarks={tr.n_lm} "
-        f"ate_rmse_m={rmse!r} bound_m={bound!r} (jax {JAX_ATE_M!r}) "
-        f"launches={counts}")
+        f"ate_rmse_m={rmse!r} bound_m={ate_bound!r} (jax {JAX_ATE_M!r}) "
+        f"launches={counts} keyframe_inserts={n_ins} "
+        f"min_matcher_calls={min_calls} min_matcher_calls_with_cols={min_cols}")
     if tr.track_state != TrackState.OK:
         raise RuntimeError(f"final track state {tr.track_state}")
     if len(tr.kf_order) < 3:
         raise RuntimeError(f"only {len(tr.kf_order)} keyframes")
-    if n != N_FRAMES or not rmse <= bound:
-        raise RuntimeError(f"ATE {rmse} m over the bound {bound} m (n={n})")
+    if n != N_FRAMES or not rmse <= ate_bound:
+        raise RuntimeError(f"ATE {rmse} m over the bound {ate_bound} m (n={n})")
     if counts["fast_score"] != N_FRAMES:
         raise RuntimeError(f"K1 launched {counts['fast_score']} times for "
                            f"{N_FRAMES} frames")
-    if counts["hamming_best2"] <= 0 or counts["hamming_argmin_cols"] <= 0:
-        raise RuntimeError(f"K2 not launched on the main path: {counts}")
+    if (counts["hamming_match"] < min_calls
+            or counts["hamming_match_cols"] < min_cols):
+        raise RuntimeError(f"K2 launched {counts['hamming_match']} times "
+                           f"({counts['hamming_match_cols']} with columns) for at "
+                           f"least {min_calls} matcher calls ({min_cols} with columns)")
     return counts
 
 
-def path_kernel_times(seq, device) -> dict:
-    """Each kernel against its plain twin at shapes the main path gives it:
-    the frame's atlas pair for K1, a stereo row match (1024x1024) and a
-    local-map search (2048x1024) for K2."""
-    from orb_slam3_vio_fixes_tpu_torch.ops import matching
+def path_kernel_times(seq, device, path_masks, card) -> dict:
+    """Each kernel at shapes the main path gives it: device ms, bound, plain
+    twin's ms and the first slice's ms. Returns the JSON rows' numbers."""
+    from orb_slam3_vio_fixes_tpu_torch.ops import fast, matching
 
+    rows = {}
+    x = atlases_of(seq, 0, device)
+    rows["fast_score 2x2380x752"] = (
+        *cuda_ms(lambda: fast.fast_score_batch(x), 50, host=True),
+        cuda_ms(lambda: fast.fast_score_plain(x), 10), *k1_bound(x))
     g = torch.Generator(device=device).manual_seed(2)
-    out = {}
-    for Q in (1024, 2048):
-        dq, dt, mask = _k2_inputs(g, Q, 1024, "random", device)
-        out[f"best2_{Q}x1024"] = (
-            cuda_ms(lambda: matching.hamming_best2(dq, dt, mask), 50),
-            cuda_ms(lambda: matching.best2_plain(dq, dt, mask), 10))
-        out[f"cols_{Q}x1024"] = (
-            cuda_ms(lambda: matching.hamming_argmin_cols(dq, dt, mask), 50),
-            cuda_ms(lambda: matching.col_argmin_plain(dq, dt, mask), 10))
-    return out
+    cases = [(f"hamming_match {Q}x1024 {'cols' if cols else 'rows'}",
+              *_k2_inputs(g, Q, 1024, "random", device), cols)
+             for Q in (1024, 2048) for cols in (True, False)]
+    cases += [(f"hamming_match path {name} {'cols' if cols else 'rows'}", dq, dt, mask, cols)
+              for name, (dq, dt, mask, cols) in path_masks.items()]
+    for label, dq, dt, mask, cols in cases:
+        rows[label] = (
+            *cuda_ms(lambda: matching.hamming_match(dq, dt, mask, cols), 50, host=True),
+            cuda_ms(lambda: matching.match_plain(dq, dt, mask, cols), 10),
+            *k2_bound(dq, dt, mask, cols))
+    for label, dq, dt, mask, cols in cases:
+        log(f"[profile] {card}: {label} device ms per call by kernel: "
+            f"{profiled_ms(lambda: matching.hamming_match(dq, dt, mask, cols))}")
+    log(f"[profile] {card}: fast_score 2x2380x752 device ms per call by kernel: "
+        f"{profiled_ms(lambda: fast.fast_score_batch(x))}")
+    for label, (k_ms, h_ms, p_ms, b_ms, b_by) in rows.items():
+        pr1 = PR1_MS.get(label)
+        log(f"[timing] {card}: {label} kernel_ms={k_ms!r} host_enqueue_ms={h_ms!r} "
+            f"bound_ms={b_ms!r} ({b_by}) "
+            f"plain_ms={p_ms!r} pr1_ms={pr1!r}"
+            + ("" if pr1 is None else f" below_pr1={k_ms < pr1}"))
+    return rows
 
 
 def main() -> int:
@@ -281,9 +428,10 @@ def main() -> int:
     seq = make_sequence()
     k1 = check_k1(seq, device)
     sync()
-    k2_row, k2_col = check_k2(device)
+    path_masks = capture_path_masks(seq, device)
+    k2 = check_k2(device, path_masks)
     sync()
-    log(f"[k1] {k1}  [k2 rows] {k2_row}  [k2 cols] {k2_col}")
+    log(f"[k1] {k1}  [k2] {k2}")
 
     counts = main_path(seq, device)
     sync()
@@ -292,25 +440,27 @@ def main() -> int:
     sync()
     ms_arr = 1e3 * np.asarray(per_frame[1:])
     fps = len(ms_arr) / (ms_arr.sum() / 1e3)
-    times = path_kernel_times(seq, device)
     log(f"[timing] {card}: fps={fps:.3f} frame_ms p50={np.percentile(ms_arr, 50):.2f} "
         f"p95={np.percentile(ms_arr, 95):.2f} max={ms_arr.max():.2f} "
         f"(first frame {1e3 * per_frame[0]:.1f} ms excluded)")
-    for name, (k_ms, p_ms) in times.items():
-        log(f"[timing] {card}: {name} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}")
+    times = path_kernel_times(seq, device, path_masks, card)
     sync()
+
+    def numbers(label):
+        k_ms, _, p_ms, b_ms, b_by = times[label]
+        return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None}
 
     src = "orb_slam3_vio_fixes_tpu_torch/csrc/"
     report = {"kernels": [
         {"name": "fast_score", "route": "cuda", "source": src + "fast_score.cu",
          "replaces": "orb_slam3_vio_fixes_tpu/ops/pallas_kernels.py:63",
-         "launches": counts["fast_score"], **k1},
-        {"name": "hamming_best2", "route": "cuda", "source": src + "hamming.cu",
+         "launches": counts["fast_score"], **k1,
+         **numbers("fast_score 2x2380x752")},
+        {"name": "hamming_match", "route": "cuda", "source": src + "hamming.cu",
          "replaces": "orb_slam3_vio_fixes_tpu/ops/matching.py:39",
-         "launches": counts["hamming_best2"], **k2_row},
-        {"name": "hamming_argmin_cols", "route": "cuda", "source": src + "hamming.cu",
-         "replaces": "orb_slam3_vio_fixes_tpu/ops/matching.py:54",
-         "launches": counts["hamming_argmin_cols"], **k2_col},
+         "launches": counts["hamming_match"], **k2,
+         **numbers("hamming_match 1024x1024 cols")},
     ]}
     print(json.dumps(report))
     print(card)

@@ -107,9 +107,10 @@ def create_new_landmarks_impl(state: ms.MapState, kf_id: int, neighbor_ids,
         free1 = fv1 & (state.kf_obs[k] < 0)
         free2 = state.kf_feat_valid[n] & (state.kf_obs[n] < 0)
         mask = epi & free1[:, None] & free2[None, :] & nb_ok & base_ok
-        best_idx, best, _, _ = matching.hamming_best2(desc1, desc2, mask)
+        best_idx, best, _, _, col_idx = matching.hamming_match(desc1, desc2, mask,
+                                                               cols=True)
         ok = best <= matching.TH_LOW
-        ok &= matching.mutual_ok(desc1, desc2, mask, best_idx)
+        ok &= matching.mutual_ok(col_idx, best_idx)
 
         j = best_idx.to(torch.int64).clamp(0, N - 1)
         R1b, t1b = R1.expand(N, 3, 3), t1.expand(N, 3)

@@ -34,10 +34,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # in, out, B, H, W, stream
     "slam_fast_score": (_P, _P, _I, _I, _I, _P),
-    # desc_q, desc_t, mask, Q, T, best_idx, best, second, second_idx, stream
-    "slam_hamming_best2": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
-    # desc_q, desc_t, mask, Q, T, col_idx, stream
-    "slam_hamming_argmin_cols": (_P, _P, _P, _I, _I, _P, _P),
+    # desc_q, desc_t, mask, Q, T, want_cols, best_idx, best, second,
+    # second_idx, col_key, stream
+    "slam_hamming_match": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
 }
 
 
@@ -110,19 +109,15 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name}: no kernel for device {dev}")
 
 
-def launch_counters() -> dict:
-    """Name -> the wrapper that counts that kernel's launches."""
-    from orb_slam3_vio_fixes_tpu_torch.ops import fast, matching
-
-    return {"fast_score": fast.fast_score_batch,
-            "hamming_best2": matching.hamming_best2,
-            "hamming_argmin_cols": matching.hamming_argmin_cols}
+# Launches per kernel, counted by each wrapper where it launches its kernel
+# ("hamming_match_cols" counts the K2 launches that also reduce columns).
+LAUNCHES = {"fast_score": 0, "hamming_match": 0, "hamming_match_cols": 0}
 
 
 def reset_launch_counts() -> None:
-    for fn in launch_counters().values():
-        fn.launches = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in launch_counters().items()}
+    return dict(LAUNCHES)

@@ -26,31 +26,32 @@ BORDER = 3
 ARC = 9
 
 
+def _arc_max(ring: torch.Tensor) -> torch.Tensor:
+    """Max over the 16 circular 9-long arcs of the arc minimum, (16, ...) ->
+    (...): the kernel's 3-ary chain over the ring wrapped to 24 entries,
+    m3[i] = min3(ring[i..i+2]), m9[i] = min3(m3[i], m3[i+3], m3[i+6])."""
+    rw = torch.cat([ring, ring[:ARC - 1]], dim=0)
+    m3 = torch.minimum(torch.minimum(rw[0:22], rw[1:23]), rw[2:24])
+    m9 = torch.minimum(torch.minimum(m3[0:16], m3[3:19]), m3[6:22])
+    return m9.amax(dim=0)
+
+
 def fast_score_plain(imgs: torch.Tensor) -> torch.Tensor:
     """Dense FAST-9/16 arc score of (B, H, W) float32 images with integer-
-    valued intensities (rounded half-to-even first). The ring differences
-    are integers in [-255, 255], held as int16, so this equals the integer
-    arithmetic of the kernel and the reference's bf16 arithmetic bit for
-    bit. The 9-long arc minima come from the chain of pairwise minima
-    2 -> 4 -> 8 -> 9 over the ring wrapped to 24 entries (4 passes instead
-    of 8); the dark arc is the negated arc MAXIMUM of the same differences."""
+    valued intensities (rounded half-to-even first). Intensities are held as
+    int16, so this equals the integer arithmetic of the kernel and the
+    reference's bf16 arithmetic bit for bit. As in the kernel, the centre c
+    comes out of the chain: the bright score is max(arc_max(v), c) - c and
+    the dark one max(arc_max(-v), -c) + c, over the ring values v."""
     _, h, w = imgs.shape
     x = torch.round(imgs.to(torch.float32))
     pad = F.pad(x[:, None], (BORDER,) * 4, mode="replicate")[:, 0].to(torch.int16)
     c = pad[:, BORDER:BORDER + h, BORDER:BORDER + w]
-    d = torch.stack([pad[:, BORDER + dy:BORDER + dy + h,
-                         BORDER + dx:BORDER + dx + w] for dy, dx in CIRCLE]) - c
-    dw = torch.cat([d, d[:ARC - 1]], dim=0)                    # (24, B, H, W)
-
-    def arc(op):
-        m2 = op(dw[:-1], dw[1:])
-        m4 = op(m2[:-2], m2[2:])
-        m8 = op(m4[:-4], m4[4:])
-        return op(m8[:16], dw[ARC - 1:ARC - 1 + 16])
-
-    bright = arc(torch.minimum).amax(dim=0)
-    dark = -arc(torch.maximum).amin(dim=0)
-    score = torch.clamp(torch.maximum(bright, dark), min=0).to(torch.float32)
+    ring = torch.stack([pad[:, BORDER + dy:BORDER + dy + h,
+                            BORDER + dx:BORDER + dx + w] for dy, dx in CIRCLE])
+    bright = torch.maximum(_arc_max(ring), c) - c
+    dark = torch.maximum(_arc_max(-ring), -c) + c
+    score = torch.maximum(bright, dark).to(torch.float32)
     yy = torch.arange(h, device=imgs.device)[:, None]
     xx = torch.arange(w, device=imgs.device)[None, :]
     inb = (yy >= BORDER) & (yy < h - BORDER) & (xx >= BORDER) & (xx < w - BORDER)
@@ -70,11 +71,8 @@ def fast_score_batch(imgs: torch.Tensor) -> torch.Tensor:
     rc = kernels.library().slam_fast_score(
         imgs.data_ptr(), out.data_ptr(), B, H, W, kernels.stream_of(imgs))
     kernels.check(rc, "slam_fast_score")
-    fast_score_batch.launches += 1
+    kernels.LAUNCHES["fast_score"] += 1
     return out
-
-
-fast_score_batch.launches = 0
 
 
 def nms3(score: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,11 @@
 """Binary-descriptor matching (port of orb_slam3_vio_fixes_tpu/ops/matching.py).
 
 Every matcher is a dense (Q, T) admissibility mask built in torch, reduced
-by kernel K2 (`csrc/hamming.cu`): `hamming_best2` gives each query row's
-best and second-best train index, `hamming_argmin_cols` each train column's
-best query (the cross-check). On CPU tensors the wrappers run the plain
-twins `best2_plain` / `col_argmin_plain`, which materialise the distance
-matrix with a SWAR popcount (torch has no popcount op).
+by kernel K2 (`csrc/hamming.cu`) in one launch: `hamming_match` gives each
+query row's best and second-best train index and, for the mutual matchers,
+each train column's best query (the cross-check). On CPU tensors the wrapper
+runs the plain twin `match_plain`, which materialises the distance matrix
+with a SWAR popcount (torch has no popcount op).
 """
 
 from __future__ import annotations
@@ -42,29 +42,23 @@ def hamming_matrix(desc_q: torch.Tensor, desc_t: torch.Tensor) -> torch.Tensor:
     return popcount32(x).sum(-1, dtype=torch.int32)
 
 
-def best2_plain(desc_q, desc_t, mask):
-    """Plain twin of kernel K2's row pass: (best_idx, best, second,
-    second_idx), each (Q,) int32, with the reference's jnp.argmin tie rules
-    (first index; only the best POSITION is removed for the second)."""
+def match_plain(desc_q, desc_t, mask, cols: bool):
+    """Plain twin of kernel K2: (best_idx, best, second, second_idx), each
+    (Q,) int32, with the reference's jnp.argmin tie rules (first index; only
+    the best POSITION is removed for the second), and, when `cols`, each
+    train column's first query index with the minimal masked distance, (T,)
+    int32 (else None)."""
     d = torch.where(mask, hamming_matrix(desc_q, desc_t),
                     torch.full((), BIG, dtype=torch.int32, device=mask.device))
     best_idx = torch.argmin(d, dim=1)
     best = torch.gather(d, 1, best_idx[:, None])[:, 0]
+    col_idx = torch.argmin(d, dim=0).to(torch.int32) if cols else None
     rows = torch.arange(d.shape[0], device=d.device)
-    d2 = d.clone()
-    d2[rows, best_idx] = BIG
-    second_idx = torch.argmin(d2, dim=1)
-    second = torch.gather(d2, 1, second_idx[:, None])[:, 0]
+    d[rows, best_idx] = BIG
+    second_idx = torch.argmin(d, dim=1)
+    second = torch.gather(d, 1, second_idx[:, None])[:, 0]
     return (best_idx.to(torch.int32), best, second,
-            second_idx.to(torch.int32))
-
-
-def col_argmin_plain(desc_q, desc_t, mask):
-    """Plain twin of kernel K2's column pass: per train column, the first
-    query index with the minimal masked distance, (T,) int32."""
-    d = torch.where(mask, hamming_matrix(desc_q, desc_t),
-                    torch.full((), BIG, dtype=torch.int32, device=mask.device))
-    return torch.argmin(d, dim=0).to(torch.int32)
+            second_idx.to(torch.int32), col_idx)
 
 
 def _check_k2(name, desc_q, desc_t, mask):
@@ -87,53 +81,37 @@ def _aligned(desc: torch.Tensor) -> torch.Tensor:
     return desc if desc.data_ptr() % 16 == 0 else desc.clone()
 
 
-def hamming_best2(desc_q: torch.Tensor, desc_t: torch.Tensor,
-                  mask: torch.Tensor):
-    """Masked Hamming best-2 per query row (kernel K2, row pass)."""
-    _check_k2("hamming_best2", desc_q, desc_t, mask)
+def hamming_match(desc_q: torch.Tensor, desc_t: torch.Tensor,
+                  mask: torch.Tensor, cols: bool):
+    """Masked Hamming best-2 per query row and, when `cols`, argmin per
+    train column, in one launch of kernel K2. Returns (best_idx, best,
+    second, second_idx, col_idx or None), int32."""
+    _check_k2("hamming_match", desc_q, desc_t, mask)
     if desc_q.device.type == "cpu":
-        return best2_plain(desc_q, desc_t, mask)
+        return match_plain(desc_q, desc_t, mask, cols)
     desc_q, desc_t, mask = _aligned(desc_q), _aligned(desc_t), mask.contiguous()
-    kernels.require_cuda("hamming_best2", desc_q, desc_t, mask)
+    kernels.require_cuda("hamming_match", desc_q, desc_t, mask)
     Q, T = mask.shape
-    outs = [torch.empty(Q, dtype=torch.int32, device=mask.device)
-            for _ in range(4)]
-    rc = kernels.library().slam_hamming_best2(
-        desc_q.data_ptr(), desc_t.data_ptr(), mask.data_ptr(), Q, T,
-        *(o.data_ptr() for o in outs), kernels.stream_of(mask))
-    kernels.check(rc, "slam_hamming_best2")
-    hamming_best2.launches += 1
-    return tuple(outs)
+    # One allocation for the four row outputs, and the column keys (a uint64
+    # (distance << 32 | query) per column) as int32 pairs whose low words are
+    # the argmins: the frame loop is bound by the host's per-call cost.
+    outs = torch.empty((4, Q), dtype=torch.int32, device=mask.device)
+    col_key = torch.empty(2 * T, dtype=torch.int32, device=mask.device) if cols else None
+    row = outs.data_ptr()
+    rc = kernels.library().slam_hamming_match(
+        desc_q.data_ptr(), desc_t.data_ptr(), mask.data_ptr(), Q, T, int(cols),
+        row, row + 4 * Q, row + 8 * Q, row + 12 * Q,
+        col_key.data_ptr() if cols else None, kernels.stream_of(mask))
+    kernels.check(rc, "slam_hamming_match")
+    kernels.LAUNCHES["hamming_match"] += 1
+    kernels.LAUNCHES["hamming_match_cols"] += int(cols)
+    return (*outs.unbind(0), col_key[0::2] if cols else None)
 
 
-hamming_best2.launches = 0
-
-
-def hamming_argmin_cols(desc_q: torch.Tensor, desc_t: torch.Tensor,
-                        mask: torch.Tensor) -> torch.Tensor:
-    """Masked Hamming argmin per train column (kernel K2, column pass)."""
-    _check_k2("hamming_argmin_cols", desc_q, desc_t, mask)
-    if desc_q.device.type == "cpu":
-        return col_argmin_plain(desc_q, desc_t, mask)
-    desc_q, desc_t, mask = _aligned(desc_q), _aligned(desc_t), mask.contiguous()
-    kernels.require_cuda("hamming_argmin_cols", desc_q, desc_t, mask)
-    Q, T = mask.shape
-    out = torch.empty(T, dtype=torch.int32, device=mask.device)
-    rc = kernels.library().slam_hamming_argmin_cols(
-        desc_q.data_ptr(), desc_t.data_ptr(), mask.data_ptr(), Q, T,
-        out.data_ptr(), kernels.stream_of(mask))
-    kernels.check(rc, "slam_hamming_argmin_cols")
-    hamming_argmin_cols.launches += 1
-    return out
-
-
-hamming_argmin_cols.launches = 0
-
-
-def mutual_ok(desc_q, desc_t, mask, best_idx) -> torch.Tensor:
-    """q -> t matches whose t also prefers q (the reference's mutual_filter)."""
-    best_idx_t = hamming_argmin_cols(desc_q, desc_t, mask)
-    back = best_idx_t[best_idx.to(torch.int64)]
+def mutual_ok(col_idx, best_idx) -> torch.Tensor:
+    """q -> t matches whose t also prefers q (the reference's mutual_filter),
+    from the column argmins of the same hamming_match call."""
+    back = col_idx[best_idx.to(torch.int64)]
     return back == torch.arange(best_idx.shape[0], dtype=torch.int32,
                                 device=back.device)
 
@@ -164,11 +142,12 @@ def match_descriptors(desc_q, valid_q, desc_t, valid_t, angle_q=None,
                       mutual: bool = True) -> MatchResult:
     """Nearest-neighbour matcher with ratio / mutual / rotation gates."""
     mask = valid_q[:, None] & valid_t[None, :]
-    best_idx, best, second, _ = hamming_best2(desc_q, desc_t, mask)
+    best_idx, best, second, _, col_idx = hamming_match(desc_q, desc_t, mask,
+                                                       cols=mutual)
     ok = best <= max_dist
     ok &= best.to(torch.float32) < ratio * second.to(torch.float32)
     if mutual:
-        ok &= mutual_ok(desc_q, desc_t, mask, best_idx)
+        ok &= mutual_ok(col_idx, best_idx)
     if check_rotation:
         ok = rotation_consistency(angle_q, angle_t, best_idx, ok)
     return MatchResult(torch.where(ok, best_idx, torch.full_like(best_idx, -1)),
@@ -197,7 +176,8 @@ def search_by_projection(proj_uv, proj_valid, proj_desc, proj_octave, radius,
         er = (proj_ur[:, None] - feat_ur[None, :]).abs()
         mask &= torch.where(has_r, er <= radius[:, None], True)
 
-    best_idx, best, second, second_idx = hamming_best2(proj_desc, feat_desc, mask)
+    best_idx, best, second, second_idx, _ = hamming_match(proj_desc, feat_desc,
+                                                          mask, cols=False)
     ok = best <= max_dist
     n_feat = feat_uv.shape[0]
     if ratio > 0.0:
@@ -248,9 +228,9 @@ def stereo_row_match(uv_l, valid_l, desc_l, octave_l, uv_r, valid_r, desc_r,
     oct_ok = ((octave_r[None, :] >= octave_l[:, None] - 1)
               & (octave_r[None, :] <= octave_l[:, None] + 1))
     mask = row_ok & disp_ok & oct_ok & valid_l[:, None] & valid_r[None, :]
-    best_idx, best, _, _ = hamming_best2(desc_l, desc_r, mask)
+    best_idx, best, _, _, col_idx = hamming_match(desc_l, desc_r, mask, cols=True)
     ok = best <= TH_HIGH
-    ok &= mutual_ok(desc_l, desc_r, mask, best_idx)
+    ok &= mutual_ok(col_idx, best_idx)
     ur = uv_r[best_idx.to(torch.int64), 0]
     d = uv_l[:, 0] - ur
     d = torch.where(d < 0.01, torch.full_like(d, 0.01), d)

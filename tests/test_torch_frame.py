@@ -116,6 +116,23 @@ def test_pyramid_and_fast_score(imgs):
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("h,w,half", [(40, 53, False), (40, 53, True),
+                                      (7, 37, False), (7, 37, True),
+                                      (24, 751, True)])
+def test_fast_score_plain_matches_xla(rng, h, w, half):
+    """The plain twin's 3-ary chain (the kernel's, index for index, with the
+    centre out of the chain) against the reference's 9-step minimum, on
+    integer and half-integer
+    intensities (the round-half-to-even step) and odd shapes."""
+    x = rng.integers(0, 511 if half else 256, (2, h, w)).astype(np.float32)
+    if half:
+        x *= 0.5
+    ref = np.stack([np.asarray(jfast._fast_score_xla(jnp.asarray(a))) for a in x])
+    got = tfast.fast_score_batch(torch.from_numpy(x)).numpy()
+    assert (ref > 0).any()
+    np.testing.assert_array_equal(got, ref)
+
+
 def _keys(uv, octave, valid):
     return {(int(o), round(float(u), 2), round(float(v), 2)): i
             for i, ((u, v), o, ok) in enumerate(zip(uv, octave, valid)) if ok}

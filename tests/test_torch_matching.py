@@ -1,6 +1,8 @@
-"""Parity of the port's matchers — kernel K2's plain twin (best-2 rows,
-column argmin) and the matchers built on it — with the JAX package's
-masked_best2 / mutual_filter / search_by_projection / stereo_row_match.
+"""Parity of the port's matchers — kernel K2's plain twin (best-2 rows and,
+in the same call, the column argmin) and the matchers built on it — with the
+JAX package's masked_best2 / mutual_filter / search_by_projection /
+stereo_row_match; and a model of the kernel's decomposition (tiles merged by
+key, the column butterfly) against the whole-row plain twin.
 
 Tolerance: exact. Hamming distances are integers and every tie rule (first
 index; only the best position removed for the second) is reproduced, so the
@@ -59,24 +61,126 @@ def n(x):
     return x.detach().cpu().numpy()
 
 
+def _check_against_reference(dq, dt, mask):
+    """hamming_match with and without columns against the JAX package's
+    masked_best2, the ratio branch's second index and mutual_filter."""
+    Q = dq.shape[0]
+    dist = jm.hamming_matrix(jnp.asarray(dq), jnp.asarray(dt))
+    np.testing.assert_array_equal(n(tm.hamming_matrix(t(dq), t(dt))), np.asarray(dist))
+    bi, b, s = jm.masked_best2(dist, jnp.asarray(mask))
+    # second index as search_by_projection's ratio branch computes it
+    d = jnp.where(jnp.asarray(mask), dist, jm.BIG)
+    si = jnp.argmin(d.at[jnp.arange(Q), bi].set(jm.BIG), axis=1)
+    mut = jm.mutual_filter(bi, b, dist, jnp.asarray(mask))
+    for cols in (False, True):
+        got = tm.hamming_match(t(dq), t(dt), t(mask), cols)
+        for a, ref in zip(got[:4], (bi, b, s, si)):
+            np.testing.assert_array_equal(n(a), np.asarray(ref))
+        if cols:
+            np.testing.assert_array_equal(n(tm.mutual_ok(got[4], got[0])),
+                                          np.asarray(mut))
+        else:
+            assert got[4] is None
+
+
 @pytest.mark.parametrize("density", [1.0, 0.2, 0.01, 0.0])
 def test_best2_and_cols_match_reference(rng, density):
     Q, T = 96, 80
     dq, dt = tie_desc(rng, Q), tie_desc(rng, T)
+    _check_against_reference(dq, dt, rng.random((Q, T)) < density)
+
+
+@pytest.mark.parametrize("Q,T,density", [
+    (1, 1, 1.0),        # one pair: no second exists
+    (1, 1, 0.0),
+    (33, 1, 0.5),
+    (40, 70, 0.0),      # every row masked
+    (50, 257, 0.3),     # T past one 256-train tile, not a multiple of 32
+    (3, 300, 0.05),
+])
+def test_hamming_match_edges(rng, Q, T, density):
+    dq, dt = tie_desc(rng, Q, pool=3), tie_desc(rng, T, pool=3)
     mask = rng.random((Q, T)) < density
-    dist = jm.hamming_matrix(jnp.asarray(dq), jnp.asarray(dt))
-    np.testing.assert_array_equal(n(tm.hamming_matrix(t(dq), t(dt))), np.asarray(dist))
-    bi, b, s = jm.masked_best2(dist, jnp.asarray(mask))
-    got = tm.hamming_best2(t(dq), t(dt), t(mask))
-    for a, ref in zip(got[:3], (bi, b, s)):
-        np.testing.assert_array_equal(n(a), np.asarray(ref))
-    # second index as search_by_projection's ratio branch computes it
-    d = jnp.where(jnp.asarray(mask), dist, jm.BIG)
-    d2 = d.at[jnp.arange(Q), bi].set(jm.BIG)
-    np.testing.assert_array_equal(n(got[3]), np.asarray(jnp.argmin(d2, axis=1)))
-    mut = jm.mutual_filter(bi, b, dist, jnp.asarray(mask))
-    np.testing.assert_array_equal(n(tm.mutual_ok(t(dq), t(dt), t(mask), got[0])),
-                                  np.asarray(mut))
+    mask[Q // 2] = False                               # an empty row in every case
+    _check_against_reference(dq, dt, mask)
+
+
+KEY_MAX = np.iinfo(np.int64).max
+
+
+def _merge2(a1, a2, b1, b2):
+    """The kernel's merge of top-2 key sets (b1 < b2) into (a1 < a2)."""
+    take = b1 < a1
+    return np.where(take, b1, a1), np.where(take, np.minimum(a1, b2), np.minimum(a2, b1))
+
+
+def _kernel_model(d, tq, tt, rng):
+    """K2's decomposition on the (Q, T) masked distances d: tile-local keys
+    (d << 8 | t_local) for rows and (d << 5 | lane) for columns, per-tile
+    row top-2 widened to (d << 32 | t) and merged across tiles in a random
+    order, per-tile column minima merged by min, all-BIG column partials
+    dropped except in the first query strip."""
+    Q, T = d.shape
+    big = tm.BIG
+    k1 = np.full(Q, KEY_MAX)
+    k2 = np.full(Q, KEY_MAX)
+    col = np.full(T, KEY_MAX)
+    for t0 in rng.permutation(np.arange(0, T, tt)):
+        tile = d[:, t0:t0 + tt]
+        local = np.sort((tile << 8) | np.arange(tile.shape[1]), axis=1)
+        r1 = local[:, 0]
+        r2 = local[:, 1] if tile.shape[1] > 1 else np.full(Q, KEY_MAX)
+        widen = lambda r: np.where(r == KEY_MAX, KEY_MAX,
+                                   ((r >> 8) << 32) | (t0 + (r & 255)))
+        k1, k2 = _merge2(k1, k2, widen(r1), widen(r2))
+        for q0 in rng.permutation(np.arange(0, Q, tq)):
+            strip = tile[q0:q0 + tq]
+            ck = ((strip << 5) | np.arange(strip.shape[0])[:, None]).min(axis=0)
+            cd = ck >> 5
+            key = (cd << 32) | (q0 + (ck & 31))
+            keep = (cd < big) | (q0 == 0)
+            sl = slice(t0, t0 + tile.shape[1])
+            col[sl] = np.where(keep, np.minimum(col[sl], key), col[sl])
+    s, si = k2 >> 32, k2 & 0xFFFFFFFF
+    none = s >= big
+    return ((k1 & 0xFFFFFFFF).astype(np.int32), (k1 >> 32).astype(np.int32),
+            np.where(none, big, s).astype(np.int32),
+            np.where(none, 0, si).astype(np.int32), (col & 0xFFFFFFFF).astype(np.int32))
+
+
+@pytest.mark.parametrize("tq,tt", [(32, 256), (7, 13), (1, 5), (32, 1), (5, 256)])
+def test_tiled_merge_equals_whole_row(rng, tq, tt):
+    """The merge rules the kernel relies on hold on ragged tiles: partial
+    top-2 sets and partial column minima merged in any order give the
+    whole-row plain twin's answer, ties and empty rows included."""
+    Q, T = 70, 300
+    dq, dt = tie_desc(rng, Q, pool=4), tie_desc(rng, T, pool=4)
+    mask = rng.random((Q, T)) < 0.2
+    mask[5] = False
+    mask[:, 7] = False
+    dist = n(tm.hamming_matrix(t(dq), t(dt))).astype(np.int64)
+    d = np.where(mask, dist, tm.BIG)
+    got = _kernel_model(d, tq, tt, rng)
+    ref = tm.match_plain(t(dq), t(dt), t(mask), cols=True)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, n(b))
+
+
+def test_column_butterfly_model(rng):
+    """The kernel's five-step shuffle butterfly (fold_columns<16..1>): lane j
+    ends with the minimum over the 32 lanes of column j."""
+    ck = rng.integers(0, 1 << 25, (32, 32))            # [lane, column]
+    ref = ck.min(axis=0)
+    lanes = np.arange(32)
+    for s in (16, 8, 4, 2, 1):
+        upper = (lanes & s) != 0
+        nxt = ck.copy()
+        for i in range(s):
+            keep = np.where(upper, ck[:, i + s], ck[:, i])
+            send = np.where(upper, ck[:, i], ck[:, i + s])
+            nxt[:, i] = np.minimum(keep, send[lanes ^ s])
+        ck = nxt
+    np.testing.assert_array_equal(ck[:, 0], ref)
 
 
 def _proj_inputs(rng, M, N):
