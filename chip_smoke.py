@@ -26,7 +26,18 @@ Phases, in order (any failure raises and the script exits non-zero):
      each kernel at the path's shapes: device time per call back to back
      (CUDA events) and the host's time to enqueue it, the kernel's own
      execution time (torch.profiler), bound, plain twin's time and the first
-     slice's recorded time.
+     slice's recorded time;
+  7. the stereo-inertial path: bench.py's stereo-inertial scenario (60 frames
+     of 752x480 stereo with 200 Hz IMU, 1024 features) through the port's
+     StereoInertialTracker, the launch counters reset before and read after;
+     the final state must be OK with the IMU initialised, >= 2 window VI
+     BAs, the ATE within the stated bound of the JAX package's, the final
+     speed within 25% of the true one, K1 launched once per frame and K2 at
+     least once per matcher call the control flow always makes; K1 and K2
+     are held against their plain twins once more on this path's inputs;
+     that pass also prints synchronised host-clock stage times and, from
+     torch.profiler over its last 10 frames, launches per frame and the
+     device's idle share; then a timing pass (fps, p50/p95 frame ms).
 
 The last lines are one JSON object with the kernels, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -51,6 +62,16 @@ ATE_FACTOR = 1.5
 ATE_SLACK_M = 0.005
 
 N_FRAMES = 80
+
+# ATE of the JAX package's StereoInertialTracker on the same 60-frame
+# stereo-inertial scenario (bench.run_inertial_bench's sequence, tracker and
+# configuration, one pass), measured once on a CPU with JAX 0.9.0 through
+# process_stereo_inertial and evaluation.ate.ate_rmse on the camera centres.
+# That run ended OK, IMU initialised at frame 15, 8 window VI BAs, final
+# speed error 0.0266 m/s.
+JAX_VI_ATE_M = 0.008476832977569036
+VI_FRAMES = 60
+VI_SPEED_TOL = 0.25         # |v_est - v_gt| < 0.25 max(v_gt, 0.2) (test bar)
 
 # The card's peaks for the bounds: HBM3 rate of the H100 SXM, and its INT32
 # rate, a quarter of the 67 TFLOP/s float32 rate (an FMA counts 2 flops, and
@@ -277,29 +298,41 @@ def check_k2(device, path_masks) -> dict:
     return {"max_abs_err": float(err)}
 
 
+def matcher_recorder(wanted):
+    """(record, tagged, out): `record` stands in for matching.hamming_match
+    and keeps the inputs of the first call made under each wanted caller
+    path in `out`; `tagged(key, fn)` wraps fn so that the calls it makes
+    are under key ("outer/inner" when nested)."""
+    from orb_slam3_vio_fixes_tpu_torch.ops import matching
+
+    out, tags = {}, []
+    match = matching.hamming_match
+
+    def record(desc_q, desc_t, mask, cols):
+        key = "/".join(tags)
+        if key in wanted and key not in out:
+            out[key] = (desc_q.clone(), desc_t.clone(), mask.clone(), cols)
+        return match(desc_q, desc_t, mask, cols)
+
+    def tagged(key, fn):
+        def call(*args, **kw):
+            tags.append(key)
+            try:
+                return fn(*args, **kw)
+            finally:
+                tags.pop()
+        return call
+
+    return record, tagged, out
+
+
 def capture_path_masks(seq, device) -> dict:
     """Frame 0's stereo row-match mask and the first local-map search mask of
     a fresh tracker's first frames: the masks the main path gives K2."""
     from orb_slam3_vio_fixes_tpu_torch.frontend import tracking
     from orb_slam3_vio_fixes_tpu_torch.ops import matching
 
-    out, caller = {}, []
-    match = matching.hamming_match
-
-    def record(desc_q, desc_t, mask, cols):
-        if caller and caller[-1] not in out:
-            out[caller[-1]] = (desc_q.clone(), desc_t.clone(), mask.clone(), cols)
-        return match(desc_q, desc_t, mask, cols)
-
-    def tagged(key, fn):
-        def call(*args, **kw):
-            caller.append(key)
-            try:
-                return fn(*args, **kw)
-            finally:
-                caller.pop()
-        return call
-
+    record, tagged, out = matcher_recorder({"stereo_frame0", "local_map_search"})
     tr = build_tracker(seq, device)
     with mock.patch.object(matching, "hamming_match", record), \
             mock.patch.object(matching, "stereo_row_match",
@@ -318,15 +351,56 @@ def capture_path_masks(seq, device) -> dict:
     return out
 
 
-def run_pass(seq, device):
-    tr = build_tracker(seq, device)
+def make_inertial_sequence(n_frames: int = VI_FRAMES):
+    """bench.run_inertial_bench's sequence with the port's numpy generator."""
+    from orb_slam3_vio_fixes_tpu_torch.io import synthetic
+
+    rng = np.random.default_rng(11)
+    world = synthetic.make_world(rng, n_points=1400, extent=10.0,
+                                 depth_range=(3.0, 14.0))
+    seq = synthetic.make_stereo_inertial_sequence(
+        rng, n_frames=n_frames, h=480, w=752, fx=458.0, baseline=0.11, world=world,
+        imu_hz=200.0, accel_amp=0.6)
+    return seq._replace(
+        imgs_l=np.clip(np.rint(seq.imgs_l), 0, 255).astype(np.uint8),
+        imgs_r=np.clip(np.rint(seq.imgs_r), 0, 255).astype(np.uint8))
+
+
+def build_inertial_tracker(seq, device):
+    """bench.run_inertial_bench's tracker for the port, sync mode."""
+    from orb_slam3_vio_fixes_tpu_torch.frontend import inertial_tracking as it
+    from orb_slam3_vio_fixes_tpu_torch.imu import preintegration as pre
+
+    base = build_tracker(seq, device)
+    icfg = it.InertialConfig(frame_samples=16, kf_samples=256, init_min_kfs=4,
+                             init_min_time=0.5, vi_window=6, fix_scale=True)
+    calib = pre.ImuCalib.make(1.7e-4, 2e-3, 1.9e-5, 3e-3, seq.imu_hz, device=device)
+    return it.StereoInertialTracker(base.cam, seq.K[0, 0] * seq.baseline, calib,
+                                    base.cfg, icfg, device=device)
+
+
+def track_frame(tr, seq, i):
+    """One frame through the tracker's entry point (stereo or stereo-inertial,
+    by the sequence)."""
+    if hasattr(seq, "imu"):
+        imu = seq.imu[i - 1] if i > 0 else np.zeros((0, 7), np.float32)
+        return tr.process_stereo_inertial(seq.imgs_l[i], seq.imgs_r[i], seq.ts[i], imu)
+    return tr.process_stereo(seq.imgs_l[i], seq.imgs_r[i], seq.ts[i])
+
+
+def run_pass(seq, device, build=build_tracker):
+    tr = build(seq, device)
     per_frame = []
     for i in range(seq.imgs_l.shape[0]):
         f0 = time.perf_counter()
-        tr.process_stereo(seq.imgs_l[i], seq.imgs_r[i], seq.ts[i])
+        track_frame(tr, seq, i)
         sync()
         per_frame.append(time.perf_counter() - f0)
     return tr, per_frame
+
+
+def run_inertial_pass(seq, device):
+    return run_pass(seq, device, build=build_inertial_tracker)
 
 
 def main_path(seq, device) -> dict:
@@ -375,6 +449,115 @@ def main_path(seq, device) -> dict:
                            f"({counts['hamming_match_cols']} with columns) for at "
                            f"least {min_calls} matcher calls ({min_cols} with columns)")
     return counts
+
+
+def inertial_path(seq, device, card) -> dict:
+    """The stereo-inertial path once, counted, with the matcher's inputs of
+    the post-init motion-model and local-map searches recorded, synchronised
+    host-clock stage times and torch.profiler over the last 10 frames
+    (launches per frame; `profile_track.py --inertial` gives them per
+    stage); checks its outcome and holds K1 and K2 against their plain
+    twins on this path's inputs. Returns the launch counts."""
+    import functools
+
+    from orb_slam3_vio_fixes_tpu_torch import kernels
+    from orb_slam3_vio_fixes_tpu_torch import profile_track as pt
+    from orb_slam3_vio_fixes_tpu_torch.evaluation import ate
+    from orb_slam3_vio_fixes_tpu_torch.frontend import inertial_tracking as it
+    from orb_slam3_vio_fixes_tpu_torch.frontend import tracking
+    from orb_slam3_vio_fixes_tpu_torch.frontend.tracking import TrackState
+    from orb_slam3_vio_fixes_tpu_torch.ops import fast, matching
+
+    vi_keys = ("vi_track_step/match_previous", "vi_track_step/local_map_search")
+    record, tagged, masks = matcher_recorder(set(vi_keys))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(matching, "hamming_match", record), \
+            mock.patch.object(it, "vi_track_step", tagged("vi_track_step", it.vi_track_step)), \
+            mock.patch.object(tracking, "match_previous",
+                              tagged("match_previous", tracking.match_previous)), \
+            mock.patch.object(tracking, "local_map_search",
+                              tagged("local_map_search", tracking.local_map_search)), \
+            pt.stage_timers(pt.INERTIAL_STAGES) as times:
+        tr = build_inertial_tracker(seq, device)
+        step = functools.partial(track_frame, tr, seq)
+        start = VI_FRAMES - 10
+        for i in range(start):
+            step(i)
+        pt.device_profile(step, range(start, VI_FRAMES), top=8, by_stage=False,
+                          prefix=f"[profile] {card}: stereo-inertial frames "
+                          f"{start}-{VI_FRAMES - 1}, stages synchronised")
+    sync()
+    counts = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+    pt.print_stages(times, prefix=f"[stages] {card}: stereo-inertial")
+    n_ins = tr._kf_seq
+    min_calls = VI_FRAMES + 2 * (VI_FRAMES - 1) + 6 * n_ins
+    min_cols = VI_FRAMES + 3 * n_ins
+    traj = tr.trajectory
+    est_ts = np.array([x[0] for x in traj])
+    est_pos = np.array([-x[1].T @ x[2] for x in traj])
+    if not np.all(np.isfinite(est_pos)) or est_pos.shape != (VI_FRAMES, 3):
+        raise RuntimeError(f"bad stereo-inertial trajectory: shape {est_pos.shape}")
+    rmse, _, n = ate.ate_rmse(seq.ts, seq.t_wc, est_ts, est_pos)
+    ate_bound = ATE_FACTOR * JAX_VI_ATE_M + ATE_SLACK_M
+    v_est = float(np.linalg.norm(tr.velocity_log[-1])) if tr.velocity_log else float("nan")
+    v_gt = float(np.linalg.norm(seq.vel_gt[-1]))
+    v_tol = VI_SPEED_TOL * max(v_gt, 0.2)
+    log(f"[inertial] frames={VI_FRAMES} wall={wall:.1f}s state={tr.track_state} "
+        f"imu_ready={tr.imu_ready} n_vi_ba={tr.n_vi_ba} keyframes={len(tr.kf_order)} "
+        f"keyframe_inserts={n_ins} landmarks={tr.n_lm} ate_rmse_m={rmse!r} "
+        f"bound_m={ate_bound!r} (jax {JAX_VI_ATE_M!r}) speed_est={v_est!r} "
+        f"speed_gt={v_gt!r} speed_tol={v_tol!r} launches={counts} "
+        f"min_matcher_calls={min_calls} min_matcher_calls_with_cols={min_cols}")
+    if tr.track_state != TrackState.OK:
+        raise RuntimeError(f"stereo-inertial final track state {tr.track_state}")
+    if not tr.imu_ready or tr.n_vi_ba < 2:
+        raise RuntimeError(f"imu_ready={tr.imu_ready} n_vi_ba={tr.n_vi_ba}")
+    if n != VI_FRAMES or not rmse <= ate_bound:
+        raise RuntimeError(f"stereo-inertial ATE {rmse} m over the bound {ate_bound} m")
+    if not abs(v_est - v_gt) < v_tol:
+        raise RuntimeError(f"final speed {v_est} m/s vs {v_gt} m/s (tolerance {v_tol})")
+    if counts["fast_score"] != VI_FRAMES:
+        raise RuntimeError(f"K1 launched {counts['fast_score']} times for "
+                           f"{VI_FRAMES} stereo-inertial frames")
+    if (counts["hamming_match"] < min_calls
+            or counts["hamming_match_cols"] < min_cols):
+        raise RuntimeError(f"K2 launched {counts['hamming_match']} times "
+                           f"({counts['hamming_match_cols']} with columns) for at "
+                           f"least {min_calls} matcher calls ({min_cols} with columns)")
+    for i in (0, VI_FRAMES - 1):
+        x = atlases_of(seq, i, device)
+        got, ref = fast.fast_score_batch(x), fast.fast_score_plain(x)
+        sync()
+        n_bad = int((got != ref).sum())
+        log(f"[k1] stereo-inertial frame {i}: mismatches={n_bad}")
+        if n_bad:
+            raise RuntimeError(f"K1 disagrees with its plain twin on frame {i}")
+    for key in vi_keys:
+        if key not in masks:
+            raise RuntimeError(f"no {key} matcher call on the stereo-inertial path")
+        dq, dt, mask, _ = masks[key]
+        log(f"[k2] stereo-inertial path mask {key}: shape={tuple(mask.shape)} "
+            f"density={float(mask.float().mean())!r}")
+        _k2_compare(f"stereo-inertial {key}", dq, dt, mask)
+    return counts
+
+
+def inertial_timing(seq, device, card) -> None:
+    """fps and frame ms of a fresh stereo-inertial pass (and its ATE, which
+    the device's unordered float sums move from run to run)."""
+    from orb_slam3_vio_fixes_tpu_torch.evaluation import ate
+
+    tr, per_frame = run_inertial_pass(seq, device)
+    ms_arr = 1e3 * np.asarray(per_frame[1:])
+    traj = tr.trajectory
+    rmse = ate.ate_rmse(seq.ts, seq.t_wc, np.array([x[0] for x in traj]),
+                        np.array([-x[1].T @ x[2] for x in traj]))[0]
+    log(f"[timing] {card}: stereo-inertial fps={len(ms_arr) / (ms_arr.sum() / 1e3):.3f} "
+        f"frame_ms p50={np.percentile(ms_arr, 50):.2f} "
+        f"p95={np.percentile(ms_arr, 95):.2f} max={ms_arr.max():.2f} "
+        f"(first frame {1e3 * per_frame[0]:.1f} ms excluded) ate_rmse_m={rmse!r}")
 
 
 def path_kernel_times(seq, device, path_masks, card) -> dict:
@@ -446,6 +629,12 @@ def main() -> int:
     times = path_kernel_times(seq, device, path_masks, card)
     sync()
 
+    vi_seq = make_inertial_sequence()
+    vi_counts = inertial_path(vi_seq, device, card)
+    sync()
+    inertial_timing(vi_seq, device, card)
+    sync()
+
     def numbers(label):
         k_ms, _, p_ms, b_ms, b_by = times[label]
         return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -456,10 +645,14 @@ def main() -> int:
         {"name": "fast_score", "route": "cuda", "source": src + "fast_score.cu",
          "replaces": "orb_slam3_vio_fixes_tpu/ops/pallas_kernels.py:63",
          "launches": counts["fast_score"], **k1,
+         "launches_by_path": {"stereo": counts["fast_score"],
+                              "stereo_inertial": vi_counts["fast_score"]},
          **numbers("fast_score 2x2380x752")},
         {"name": "hamming_match", "route": "cuda", "source": src + "hamming.cu",
          "replaces": "orb_slam3_vio_fixes_tpu/ops/matching.py:39",
          "launches": counts["hamming_match"], **k2,
+         "launches_by_path": {"stereo": counts["hamming_match"],
+                              "stereo_inertial": vi_counts["hamming_match"]},
          **numbers("hamming_match 1024x1024 cols")},
     ]}
     print(json.dumps(report))

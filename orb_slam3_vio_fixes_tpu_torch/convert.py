@@ -1,8 +1,11 @@
-"""Carry state across from the JAX package: its MapState, Camera and
-FrameData fields, taken as numpy arrays, into the port's tensors and back.
+"""Carry state across from the JAX package: its MapState, Camera, FrameData
+and inertial types (ImuCalib, Preintegrated, BodyState, the VIProblem
+leaves), their fields taken as numpy arrays, into the port's tensors and
+back.
 
 The reference's uint32 descriptor words become int32 bit patterns (torch's
-uint32 support is thin); the conversion back restores uint32.
+uint32 support is thin); the conversion back restores uint32. Index fields
+become int64, the port's index type.
 """
 
 from __future__ import annotations
@@ -11,6 +14,9 @@ import numpy as np
 import torch
 
 from orb_slam3_vio_fixes_tpu_torch.frontend.frame import FrameData
+from orb_slam3_vio_fixes_tpu_torch.frontend.inertial_tracking import BodyState
+from orb_slam3_vio_fixes_tpu_torch.imu.preintegration import ImuCalib, Preintegrated
+from orb_slam3_vio_fixes_tpu_torch.optim import vi_ba
 from orb_slam3_vio_fixes_tpu_torch.slam_map.map_state import MapState
 from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera
 
@@ -54,3 +60,45 @@ def frame_from_numpy(fields: dict, device) -> FrameData:
     """{field name: numpy array} of the JAX FrameData -> the port's."""
     return FrameData(**{f: _to_tensor(fields[f], device)
                         for f in FrameData._fields})
+
+
+def fields_from_numpy(cls, fields: dict, device, index=()):
+    """A NamedTuple `cls` of tensors from {field name: numpy array}; the
+    `index` fields become int64."""
+    return cls(**{f: (_to_tensor(fields[f], device).to(torch.int64) if f in index
+                      else _to_tensor(fields[f], device)) for f in cls._fields})
+
+
+def imu_calib_from_numpy(fields: dict, device) -> ImuCalib:
+    """The JAX ImuCalib's leaves -> the port's (variances as float32-rounded
+    Python floats, extrinsics as tensors)."""
+    return ImuCalib(*(float(np.float32(fields[f])) for f in ImuCalib._fields[:4]),
+                    _to_tensor(fields["R_bc"], device), _to_tensor(fields["t_bc"], device))
+
+
+def preintegrated_from_numpy(fields: dict, device) -> Preintegrated:
+    return fields_from_numpy(Preintegrated, fields, device)
+
+
+def body_state_from_numpy(fields: dict, device) -> BodyState:
+    return fields_from_numpy(BodyState, fields, device)
+
+
+def vi_problem_from_numpy(states: dict, lm, lm_valid, lm_fixed, reproj: dict,
+                          inertial: dict, prior: dict, cam: Camera, bf, R_cb, t_cb,
+                          device) -> vi_ba.VIProblem:
+    """A VIProblem from the JAX one's leaves (each sub-tuple as a dict)."""
+    prior = dict(prior)
+    return vi_ba.VIProblem(
+        states=fields_from_numpy(vi_ba.VIStates, states, device),
+        lm=_to_tensor(lm, device), lm_valid=_to_tensor(lm_valid, device),
+        lm_fixed=_to_tensor(lm_fixed, device),
+        reproj=fields_from_numpy(vi_ba.VIReprojFactors, reproj, device,
+                       index=("state_idx", "lm_idx")),
+        inertial=fields_from_numpy(vi_ba.VIInertialFactors, inertial, device,
+                         index=("idx_i", "idx_j")),
+        prior=vi_ba.VIPrior(
+            state_idx=int(prior.pop("state_idx")), valid=bool(prior.pop("valid")),
+            **{f: _to_tensor(a, device) for f, a in prior.items()}),
+        cam=cam, bf=float(np.float32(bf)), R_cb=_to_tensor(R_cb, device),
+        t_cb=_to_tensor(t_cb, device))

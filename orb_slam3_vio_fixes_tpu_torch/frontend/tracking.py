@@ -4,9 +4,11 @@ Device functions (frame matching, pose optimisation, keyframe insertion,
 triangulation/fusion, local BA) take and return tensors; `StereoTracker` is
 the host state machine in SYNC mode: every frame's decisions complete before
 the next frame starts (the order the reference's pipelined modes are defined
-against). Not ported yet: software pipelining / speculation, asynchronous
-keyframe jobs, loop closing, relocalisation, Atlas, the fisheye rig and the
-RGB-D entry.
+against). Its subclass hooks (`_can_cull`, `_filter_culls`, `_on_culled`,
+`_peek_kf_slot`, `_freeze_trajectory`) carry the stereo-inertial tracker of
+frontend/inertial_tracking.py. Not ported yet: software pipelining /
+speculation, asynchronous keyframe jobs, loop closing, relocalisation,
+Atlas, the fisheye rig, the RGB-D and monocular entries.
 
 The map is updated in place (slam_map/map_state.py); the tracker keeps
 clones of any row it holds across a map write.
@@ -456,12 +458,14 @@ class StereoTracker:
             pair = pair.pin_memory()
         return pair.to(self.device, non_blocking=True)
 
-    def process_stereo(self, img_l, img_r, ts: float):
+    def _build_stereo(self, img_l, img_r, ts: float) -> FrameData:
         imgs = self._upload_pair(img_l, img_r)
-        frame = build_stereo_frame_impl(
+        return build_stereo_frame_impl(
             imgs[0], imgs[1], torch.full((), ts, dtype=torch.float32, device=self.device),
             self.cam, self.bf, self.cfg.orb)
-        return self.process_frame(frame, ts)
+
+    def process_stereo(self, img_l, img_r, ts: float):
+        return self.process_frame(self._build_stereo(img_l, img_r, ts), ts)
 
     def _local_search_th(self) -> float:
         """Local-map search radius multiplier: wider while recently lost (the
@@ -575,8 +579,26 @@ class StereoTracker:
         kf_ts = self.state.kf_ts.cpu().numpy()
         return [(float(kf_ts[k]), kf_R[k], kf_t[k]) for k in self.kf_order]
 
-    def _refresh_ref_pose(self, kf_id: int, pose_np):
+    def _freeze_trajectory(self):
+        """Make every keyframe-relative trajectory entry absolute; called
+        before the active map and its keyframe slots go away (reset)."""
+        self.ref_kf = -1
+        if not any(e[1] >= 0 for e in self.traj):
+            return
+        kf_R = self.state.kf_R.cpu().numpy().astype(np.float64)
+        kf_t = self.state.kf_t.cpu().numpy().astype(np.float64)
+        for e in self.traj:
+            _, ref, Rr, tr = e
+            if ref >= 0:
+                e[1], e[2], e[3] = -1, Rr @ kf_R[ref], Rr @ kf_t[ref] + tr
+
+    def _refresh_ref_pose(self, kf_id: int, pose_np=None):
+        """Cache T_rw of the reference keyframe (pulled from the map when
+        `pose_np` is not given)."""
         self.ref_kf = int(kf_id)
+        if pose_np is None:
+            pose_np = (self.state.kf_R[kf_id].cpu().numpy().astype(np.float64),
+                       self.state.kf_t[kf_id].cpu().numpy().astype(np.float64))
         self._ref_pose = pose_np
 
     def _set_frame(self, frame, R, t, cur_obs):
@@ -649,8 +671,8 @@ class StereoTracker:
         """Keyframe insertion with every local-mapping stage inline:
         create + spawn + triangulate + fuse, local BA, culling, bookkeeping."""
         self._maybe_grow()
-        kf_id = self._free_kf_slots[0] if self._free_kf_slots else self.n_kf
-        if self._free_kf_slots:
+        kf_id = self._peek_kf_slot()
+        if self._free_kf_slots and kf_id == self._free_kf_slots[0]:
             self._free_kf_slots.pop(0)
         prev_kf = self.kf_order[-1] if self.kf_order else -1
         lcfg = self._lm_cfg()
@@ -670,6 +692,12 @@ class StereoTracker:
         self._kf_stage_finalize(kf_id)
         return kf_id
 
+    def _peek_kf_slot(self) -> int:
+        """The slot the next `_insert_keyframe` takes (free-list head or the
+        high-water cursor); subclasses that stamp per-keyframe side state
+        call it before inserting."""
+        return self._free_kf_slots[0] if self._free_kf_slots else self.n_kf
+
     def _kf_stage_ba(self, kf_id):
         self.state, n_tr = kf_ba_stage(self.state, kf_id, self.kf_order[0],
                                        self.cam, self.bf, self.cfg)
@@ -684,9 +712,21 @@ class StereoTracker:
                 recent[i] = k
             self.state = lm_mod.cull_landmarks(self.state, self.n_kf, lcfg,
                                                recent_slots=recent)
-        if (self.cfg.enable_kf_culling and seq % self.cfg.kf_cull_every == 0
+        if (self.cfg.enable_kf_culling and self._can_cull()
+                and seq % self.cfg.kf_cull_every == 0
                 and len(self.kf_order) > self.cfg.ba_window + 2):
             self._cull_keyframes()
+
+    def _can_cull(self) -> bool:
+        """Subclass gate (the inertial tracker culls only after IMU init)."""
+        return True
+
+    def _filter_culls(self, cull):
+        """Subclass veto of keyframes chosen for culling."""
+        return cull
+
+    def _on_culled(self, cull):
+        """Subclass bookkeeping, called before the keyframes are excised."""
 
     def _kf_stage_finalize(self, kf_id):
         """One pull for the keyframe's bookkeeping scalars and pose; the
@@ -727,6 +767,9 @@ class StereoTracker:
             if any(cov_rows[j][c] >= 15 for c in cull):
                 continue
             cull.append(k)
+        cull = self._filter_culls(cull)
+        if not cull:
+            return
         parents = []
         for k in cull:
             i = posn[k] - 1
@@ -749,6 +792,7 @@ class StereoTracker:
                 e[1] = p
         pad = [-1] * cfg.kf_cull_max
         pad[:len(cull)] = cull
+        self._on_culled(cull)
         self.state = ms.excise_keyframes(self.state,
                                          torch.as_tensor(pad, device=self.device))
         culled = set(cull)

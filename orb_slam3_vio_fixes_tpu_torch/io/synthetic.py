@@ -1,6 +1,7 @@
-"""Synthetic stereo sequences for the port's end-to-end runs (numpy only;
-port of the stereo part of orb_slam3_vio_fixes_tpu/io/synthetic.py:
-make_world, render, orbit_trajectory, make_stereo_sequence).
+"""Synthetic stereo(-inertial) sequences for the port's end-to-end runs
+(numpy only; port of the stereo part of orb_slam3_vio_fixes_tpu/io/
+synthetic.py: make_world, render, orbit_trajectory, make_stereo_sequence,
+make_stereo_inertial_sequence).
 
 A cloud of textured square sprites is rendered along a smooth trajectory by
 a pin-hole stereo pair with a known baseline; ATE against the generator's
@@ -170,3 +171,73 @@ def make_stereo_sequence(
         imgs_r[i] = render(world, K, R_cw, t_cw_r, h, w)
     ts = np.arange(n_frames) * dt
     return StereoSequence(imgs_l, imgs_r, ts, R_wc, t_wc, K, baseline)
+
+
+class StereoInertialSequence(NamedTuple):
+    imgs_l: np.ndarray
+    imgs_r: np.ndarray
+    ts: np.ndarray
+    R_wc: np.ndarray
+    t_wc: np.ndarray
+    K: np.ndarray
+    baseline: float
+    imu: np.ndarray        # (T-1, S, 7) [acc(3), gyro(3), dt] between frames
+    imu_hz: float
+    vel_gt: np.ndarray     # (T, 3) world-frame velocity
+
+
+def make_stereo_inertial_sequence(
+    rng, n_frames=40, h=240, w=352, fx=260.0, baseline=0.2, dt=0.05,
+    imu_hz=200.0, world=None, accel_amp=0.6, yaw_rate=0.1,
+    gyro_noise=0.0, acc_noise=0.0,
+) -> StereoInertialSequence:
+    """Stereo frames and exact IMU samples between them: sinusoidal world
+    acceleration with a constant yaw rate, gravity (0, 0, -9.81), body frame
+    = camera frame. Accelerometer a_b = R_wb^T (a_w - g), gyro
+    w_b = R_wb^T w_w. Draws from `rng` in the reference generator's order."""
+    G = np.array([0.0, 0.0, -9.81], np.float32)
+    K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1]], np.float32)
+    if world is None:
+        world = make_world(rng)
+    spf = int(round(dt * imu_hz))
+    dts = 1.0 / imu_hz
+    n_samp = spf * (n_frames - 1)
+    tt = np.arange(n_samp) * dts
+    a_w = np.stack([
+        accel_amp * np.sin(1.7 * tt),
+        0.4 * accel_amp * np.cos(1.3 * tt),
+        0.5 * accel_amp * np.sin(2.1 * tt),
+    ], 1).astype(np.float32)
+    w_w = np.tile(np.array([0.0, yaw_rate, 0.0], np.float32), (n_samp, 1))
+
+    R = np.eye(3, dtype=np.float32)
+    p = np.zeros(3, np.float32)
+    v = np.array([0.5, 0.0, 0.1], np.float32)
+    R_wc = np.zeros((n_frames, 3, 3), np.float32)
+    t_wc = np.zeros((n_frames, 3), np.float32)
+    vel = np.zeros((n_frames, 3), np.float32)
+    R_wc[0], t_wc[0], vel[0] = R, p, v
+    imu = np.zeros((n_frames - 1, spf, 7), np.float32)
+    fidx = 0
+    for k in range(n_samp):
+        a_b = R.T @ (a_w[k] - G) + rng.normal(0, acc_noise, 3)
+        w_b = R.T @ w_w[k] + rng.normal(0, gyro_noise, 3)
+        imu[fidx, k - fidx * spf] = np.concatenate([a_b, w_b, [dts]])
+        p = p + v * dts + 0.5 * a_w[k] * dts * dts
+        v = v + a_w[k] * dts
+        R = R @ so3_exp(R.T @ w_w[k] * dts)
+        if (k + 1) % spf == 0:
+            fidx += 1
+            R_wc[fidx], t_wc[fidx], vel[fidx] = R, p, v
+
+    imgs_l = np.zeros((n_frames, h, w), np.float32)
+    imgs_r = np.zeros((n_frames, h, w), np.float32)
+    b_off = np.array([baseline, 0.0, 0.0], np.float32)
+    for i in range(n_frames):
+        R_cw = R_wc[i].T
+        imgs_l[i] = render(world, K, R_cw, -R_cw @ t_wc[i], h, w)
+        C_r = t_wc[i] + R_wc[i] @ b_off
+        imgs_r[i] = render(world, K, R_cw, -R_cw @ C_r, h, w)
+    ts = np.arange(n_frames) * dt
+    return StereoInertialSequence(
+        imgs_l, imgs_r, ts, R_wc, t_wc, K, baseline, imu, imu_hz, vel)

@@ -84,6 +84,16 @@ def test_port_generator_matches_reference(seq):
     np.testing.assert_array_equal(tseq.t_wc, seq.t_wc)
     diff = np.abs(tseq.imgs_l - seq.imgs_l)
     assert diff.max() < 0.5 and (diff > 1e-3).mean() < 1e-3
+    # and its stereo-inertial sequence: the same IMU samples and states
+    vi = [mod.make_stereo_inertial_sequence(
+        np.random.default_rng(5), n_frames=3, h=H, w=W, fx=260.0, baseline=0.2,
+        world=mod.make_world(np.random.default_rng(5), n_points=100), imu_hz=200.0)
+        for mod in (jsyn, tsyn)]
+    for f in ("imu", "vel_gt", "t_wc", "ts"):
+        np.testing.assert_allclose(getattr(vi[1], f), getattr(vi[0], f), atol=1e-6,
+                                   err_msg=f)
+    np.testing.assert_allclose(vi[1].R_wc, vi[0].R_wc, atol=1e-7)
+    assert np.abs(vi[1].imgs_r - vi[0].imgs_r).max() < 0.5
 
 
 def test_fixed_tables_identical():

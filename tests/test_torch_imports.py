@@ -23,6 +23,12 @@ def test_port_imports_without_jax():
         "import orb_slam3_vio_fixes_tpu_torch\n"
         "from orb_slam3_vio_fixes_tpu_torch import convert, kernels\n"
         "from orb_slam3_vio_fixes_tpu_torch.frontend.tracking import StereoTracker\n"
+        "from orb_slam3_vio_fixes_tpu_torch.frontend.inertial_tracking import (\n"
+        "    StereoInertialTracker)\n"
+        "from orb_slam3_vio_fixes_tpu_torch.imu import preintegration\n"
+        "from orb_slam3_vio_fixes_tpu_torch.optim import inertial_init, vi_ba, vi_global_ba\n"
+        "from orb_slam3_vio_fixes_tpu_torch.utils import autodiff\n"
+        "from orb_slam3_vio_fixes_tpu_torch import profile_track\n"
         "from orb_slam3_vio_fixes_tpu_torch.io import synthetic\n"
         "from orb_slam3_vio_fixes_tpu_torch.evaluation import ate\n"
         "import chip_smoke\n"
