@@ -37,13 +37,34 @@ Phases, in order (any failure raises and the script exits non-zero):
      are held against their plain twins once more on this path's inputs;
      that pass also prints synchronised host-clock stage times and, from
      torch.profiler over its last 10 frames, launches per frame and the
-     device's idle share; then a timing pass (fps, p50/p95 frame ms).
+     device's idle share; then a timing pass (fps, p50/p95 frame ms);
+  8. loop closing: tests/test_e2e_loop.py's revisit (88 frames of 752x480
+     around a 72-frame lap, 2 gray levels of noise) through the StereoTracker
+     with a keyframe at least every 4 frames, first without and then with a
+     LoopCloser on the 10^5-word vocabulary (launches counted, loop stages
+     timed per keyframe, each correction timed, the first profiled for its
+     device ops): at
+     least one correction, the best hit 2x over every gate, the ATE below the
+     run without the closer and within the stated bound of the JAX
+     package's, the revisit gap below 0.8x; K1 and K2 exact on this path's
+     inputs (K2 on masks captured inside verify_candidate);
+  9. relocalisation: tests/test_relocalization.py's blackout at 752x480 (12
+     frames, 4 blank, a jump to frame 6's pose): OK again, one success,
+     camera centre within 5 cm; K2 exact on a reloc_attempt mask;
+ 10. Atlas: tests/test_atlas.py's scenario at 752x480: the map is stashed
+     after 3 lost frames, a new one starts and merges into it on the revisit
+     (centre within 10 cm); K2 exact on a verify_cross_candidate mask;
+ 11. snapshots: the Atlas saved and loaded back after the stash and after
+     the merge, every array equal.
+Each of phases 8-10 prints its K1/K2 launches and peak device memory.
 
 The last lines are one JSON object with the kernels, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -72,6 +93,19 @@ N_FRAMES = 80
 JAX_VI_ATE_M = 0.008476832977569036
 VI_FRAMES = 60
 VI_SPEED_TOL = 0.25         # |v_est - v_gt| < 0.25 max(v_gt, 0.2) (test bar)
+
+# ATE of the JAX package's StereoTracker with a LoopCloser on the loop
+# scenario of make_loop_sequence (the same generator calls, seed and noise),
+# tracker_config with max_frames_between_kf=4, LoopConfig(min_gap_kfs=8,
+# n_consistency=2, fix_scale=True) and the checked-in 10^5-word vocabulary
+# (orb_slam3_vio_fixes_tpu/assets/vocab_b10d5.npz), sync mode, measured once
+# on a CPU with JAX 0.9.0 through process_stereo and evaluation.ate.ate_rmse
+# on the camera centres. That run made 2 corrections (best hit: 401 matches,
+# 283 Sim3 inliers, 309 projections) and a revisit gap of 0.2653 m; without
+# the closer its ATE was 0.17617 m and the gap 0.5398 m.
+JAX_LOOP_ATE_M = 0.027254149578157468
+LOOP_FRAMES = 88
+LOOP_LAP = 72
 
 # The card's peaks for the bounds: HBM3 rate of the H100 SXM, and its INT32
 # rate, a quarter of the 67 TFLOP/s float32 rate (an FMA counts 2 flops, and
@@ -180,22 +214,33 @@ def make_sequence(n_frames: int = N_FRAMES):
         imgs_r=np.clip(np.rint(seq.imgs_r), 0, 255).astype(np.uint8))
 
 
-def build_tracker(seq, device):
-    """bench.build_tracker() for the port, sync mode."""
+def tracker_config(seq, max_frames_between_kf: int = 20):
+    """bench.build_tracker()'s configuration for the port."""
     from orb_slam3_vio_fixes_tpu_torch.frontend import tracking
     from orb_slam3_vio_fixes_tpu_torch.ops import orb
     from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
-    from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera
 
-    cfg = tracking.TrackerConfig(
+    return tracking.TrackerConfig(
         orb=orb.ORBConfig(n_features=1024, n_levels=8),
         map=ms.MapConfig(max_keyframes=256, max_landmarks=32768,
                          max_features=1024),
         width=seq.imgs_l.shape[2], height=seq.imgs_l.shape[1],
-        max_frames_between_kf=20)
-    cam = Camera.pinhole(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2])
-    return tracking.StereoTracker(cam, seq.K[0, 0] * seq.baseline, cfg,
-                                  device=device)
+        max_frames_between_kf=max_frames_between_kf)
+
+
+def camera_of(seq):
+    from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera
+
+    return Camera.pinhole(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2])
+
+
+def build_tracker(seq, device, **kw):
+    """bench.build_tracker() for the port, sync mode; `kw` passes a loop
+    closer, relocaliser or Atlas."""
+    from orb_slam3_vio_fixes_tpu_torch.frontend import tracking
+
+    return tracking.StereoTracker(camera_of(seq), seq.K[0, 0] * seq.baseline,
+                                  tracker_config(seq), device=device, **kw)
 
 
 def atlases_of(seq, i, device):
@@ -298,20 +343,25 @@ def check_k2(device, path_masks) -> dict:
     return {"max_abs_err": float(err)}
 
 
-def matcher_recorder(wanted):
+def matcher_recorder(wanted, densest: bool = False):
     """(record, tagged, out): `record` stands in for matching.hamming_match
     and keeps the inputs of the first call made under each wanted caller
-    path in `out`; `tagged(key, fn)` wraps fn so that the calls it makes
-    are under key ("outer/inner" when nested)."""
+    path in `out` (with `densest`, of the call with the most admissible
+    pairs, which reads each wanted call's mask count on the host);
+    `tagged(key, fn)` wraps fn so that the calls it makes are under key
+    ("outer/inner" when nested)."""
     from orb_slam3_vio_fixes_tpu_torch.ops import matching
 
-    out, tags = {}, []
+    out, tags, sizes = {}, [], {}
     match = matching.hamming_match
 
     def record(desc_q, desc_t, mask, cols):
         key = "/".join(tags)
-        if key in wanted and key not in out:
-            out[key] = (desc_q.clone(), desc_t.clone(), mask.clone(), cols)
+        if key in wanted:
+            n = int(mask.sum()) if densest else 0
+            if key not in out or n > sizes[key]:
+                out[key] = (desc_q.clone(), desc_t.clone(), mask.clone(), cols)
+                sizes[key] = n
         return match(desc_q, desc_t, mask, cols)
 
     def tagged(key, fn):
@@ -371,12 +421,11 @@ def build_inertial_tracker(seq, device):
     from orb_slam3_vio_fixes_tpu_torch.frontend import inertial_tracking as it
     from orb_slam3_vio_fixes_tpu_torch.imu import preintegration as pre
 
-    base = build_tracker(seq, device)
     icfg = it.InertialConfig(frame_samples=16, kf_samples=256, init_min_kfs=4,
                              init_min_time=0.5, vi_window=6, fix_scale=True)
     calib = pre.ImuCalib.make(1.7e-4, 2e-3, 1.9e-5, 3e-3, seq.imu_hz, device=device)
-    return it.StereoInertialTracker(base.cam, seq.K[0, 0] * seq.baseline, calib,
-                                    base.cfg, icfg, device=device)
+    return it.StereoInertialTracker(camera_of(seq), seq.K[0, 0] * seq.baseline, calib,
+                                    tracker_config(seq), icfg, device=device)
 
 
 def track_frame(tr, seq, i):
@@ -595,6 +644,389 @@ def path_kernel_times(seq, device, path_masks, card) -> dict:
     return rows
 
 
+def make_loop_sequence():
+    """tests/test_e2e_loop.py's revisit scenario at 752x480 with the bench's
+    camera: 88 frames around a 72-frame lap facing a sprite wall, with
+    2-gray-level Gaussian sensor noise, from the port's numpy generator."""
+    from orb_slam3_vio_fixes_tpu_torch.io import synthetic
+
+    rng = np.random.default_rng(5)
+    seq = synthetic.make_loop_stereo_sequence(
+        rng, n_frames=LOOP_FRAMES, h=480, w=752, fx=458.0, baseline=0.11, radius=3.0,
+        wall_radius=9.0, n_points=1400, n_loop=LOOP_LAP)
+    noise_l = rng.normal(0, 2.0, seq.imgs_l.shape).astype(np.float32)
+    noise_r = rng.normal(0, 2.0, seq.imgs_r.shape).astype(np.float32)
+    return seq._replace(imgs_l=quantize(seq.imgs_l + noise_l),
+                        imgs_r=quantize(seq.imgs_r + noise_r))
+
+
+def quantize(imgs):
+    return np.clip(np.rint(imgs), 0, 255).astype(np.uint8)
+
+
+def make_revisit_sequence(seed: int):
+    """tests/test_relocalization.py's and tests/test_atlas.py's 12-pose orbit
+    at 752x480, with the bench's camera and world density."""
+    from orb_slam3_vio_fixes_tpu_torch.io import synthetic
+
+    rng = np.random.default_rng(seed)
+    world = synthetic.make_world(rng, n_points=1400, extent=10.0, depth_range=(3.0, 14.0))
+    R_wc, t_wc = synthetic.orbit_trajectory(12, 0.05, speed=(0.8, 0.0, 0.1),
+                                            yaw_rate=0.05)
+    K = np.array([[458.0, 0, 376.0], [0, 458.0, 240.0], [0, 0, 1]], np.float32)
+    seq = synthetic.render_stereo_along(world, K, R_wc, t_wc, np.arange(12) * 0.05, 480,
+                                        752, 0.11)
+    return seq._replace(imgs_l=quantize(seq.imgs_l), imgs_r=quantize(seq.imgs_r))
+
+
+def loop_closer(seq, vocab, device, **cfg):
+    """A LoopCloser over the bench configuration's keyframe capacity."""
+    from orb_slam3_vio_fixes_tpu_torch.frontend import loop_closing as lc
+    from orb_slam3_vio_fixes_tpu_torch.frontend.tracking import octave_inv_sigma2
+
+    tcfg = tracker_config(seq)
+    return lc.LoopCloser(vocab, camera_of(seq), tcfg.map.max_keyframes,
+                         octave_inv_sigma2(tcfg.orb, device), lc.LoopConfig(**cfg),
+                         bf=seq.K[0, 0] * seq.baseline, n_levels=tcfg.orb.n_levels,
+                         scale=tcfg.orb.scale, device=device)
+
+
+def build_kf4_tracker(seq, device, **kw):
+    """bench.build_tracker()'s configuration with a keyframe at least every 4
+    frames (the bench's 20 leaves too few for the loop's min_gap_kfs)."""
+    from orb_slam3_vio_fixes_tpu_torch.frontend import tracking
+
+    return tracking.StereoTracker(camera_of(seq), seq.K[0, 0] * seq.baseline,
+                                  tracker_config(seq, max_frames_between_kf=4),
+                                  device=device, **kw)
+
+
+def loop_metrics(seq, tr):
+    """(ATE, revisit gap): frames k and k + lap share a true pose."""
+    from orb_slam3_vio_fixes_tpu_torch.evaluation import ate
+
+    traj = tr.trajectory
+    est_ts = np.array([x[0] for x in traj])
+    C = np.array([-R.T @ t for _, R, t in traj])
+    if not np.all(np.isfinite(C)) or C.shape != (LOOP_FRAMES, 3):
+        raise RuntimeError(f"bad loop trajectory: shape {C.shape}")
+    rmse, _, n = ate.ate_rmse(seq.ts, seq.t_wc, est_ts, C)
+    if n != LOOP_FRAMES:
+        raise RuntimeError(f"ATE over {n} of {LOOP_FRAMES} frames")
+    k = np.arange(LOOP_FRAMES - LOOP_LAP)
+    return rmse, float(np.mean(np.linalg.norm(C[k + LOOP_LAP] - C[k], axis=1)))
+
+
+def frame_stats(per_frame) -> str:
+    ms_arr = 1e3 * np.asarray(per_frame[1:])
+    return (f"fps={len(ms_arr) / (ms_arr.sum() / 1e3):.3f} "
+            f"frame_ms p50={np.percentile(ms_arr, 50):.2f} "
+            f"p95={np.percentile(ms_arr, 95):.2f} max={ms_arr.max():.2f}")
+
+
+@contextlib.contextmanager
+def device_ops_per_call(owner, name):
+    """Time each call of owner.name (synchronised); the first runs under
+    torch.profiler, whose event processing takes seconds at this size.
+    Yields a list of (device ops: kernels, copies and memsets, or None;
+    ms) per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn = getattr(owner, name)
+    calls = []
+
+    def wrapper(*a, **k):
+        sync()
+        prof = profile(activities=[ProfilerActivity.CUDA]) if not calls else None
+        with prof or contextlib.nullcontext():
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            wall = 1e3 * (time.perf_counter() - t0)
+        n_ops = None if prof is None else sum(
+            e.count for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0)
+        calls.append((n_ops, wall))
+        return out
+
+    with mock.patch.object(owner, name, wrapper):
+        yield calls
+
+
+def k1_on_frames(label, seq, frames, device) -> None:
+    from orb_slam3_vio_fixes_tpu_torch.ops import fast
+
+    for i in frames:
+        x = atlases_of(seq, i, device)
+        got, ref = fast.fast_score_batch(x), fast.fast_score_plain(x)
+        sync()
+        n_bad = int((got != ref).sum())
+        log(f"[k1] {label} frame {i}: mismatches={n_bad} nonzero={int((ref > 0).sum())}")
+        if n_bad:
+            raise RuntimeError(f"K1 disagrees with its plain twin on {label} frame {i}")
+
+
+def k2_on_masks(label, masks, keys) -> None:
+    for key in keys:
+        if key not in masks:
+            raise RuntimeError(f"no {key} matcher call on the {label} path")
+        dq, dt, mask, _ = masks[key]
+        log(f"[k2] {label} path mask {key}: shape={tuple(mask.shape)} "
+            f"density={float(mask.float().mean())!r} admissible={int(mask.sum())}")
+        if not bool(mask.any()):
+            raise RuntimeError(f"the {label} path's {key} masks admit no pair")
+        _k2_compare(f"{label} {key}", dq, dt, mask)
+
+
+def check_launches(label, counts, n_frames, min_k2) -> None:
+    if counts["fast_score"] != n_frames:
+        raise RuntimeError(f"{label}: K1 launched {counts['fast_score']} times for "
+                           f"{n_frames} frames")
+    if counts["hamming_match"] < min_k2:
+        raise RuntimeError(f"{label}: K2 launched {counts['hamming_match']} times for at "
+                           f"least {min_k2} matcher calls")
+
+
+def loop_path(seq, vocab, device, card) -> dict:
+    """Phase 8: the loop scenario without and with the loop closer; the
+    second pass is counted, its loop stages timed (synchronised) and its
+    corrections profiled. Checks the correction, its margins and the ATE,
+    and holds K1 and K2 against their plain twins on this path's inputs."""
+    from orb_slam3_vio_fixes_tpu_torch import kernels
+    from orb_slam3_vio_fixes_tpu_torch import profile_track as pt
+    from orb_slam3_vio_fixes_tpu_torch.frontend import loop_closing as lc
+    from orb_slam3_vio_fixes_tpu_torch.frontend import tracking
+    from orb_slam3_vio_fixes_tpu_torch.frontend.tracking import TrackState
+    from orb_slam3_vio_fixes_tpu_torch.ops import matching
+    from orb_slam3_vio_fixes_tpu_torch.optim import global_ba, pose_graph
+
+    t0 = time.perf_counter()
+    tr_off, per_off = run_pass(seq, device, build=build_kf4_tracker)
+    ate_off, gap_off = loop_metrics(seq, tr_off)
+    log(f"[loop] without the closer: state={tr_off.track_state} "
+        f"keyframes={len(tr_off.kf_order)} ate_rmse_m={ate_off!r} revisit_gap_m={gap_off!r} "
+        f"wall={time.perf_counter() - t0:.1f}s")
+    log(f"[timing] {card}: loop scenario without the closer {frame_stats(per_off)}")
+    del tr_off
+    stages = [(lc, "kf_histogram", "histogram"), (lc, "detect_candidates", "query"),
+              (lc, "verify_candidate", "verify"),
+              (pose_graph, "optimize_pose_graph", "pose_graph"),
+              (global_ba, "run_global_ba", "global_ba"),
+              (tracking.StereoTracker, "_loop_seam_fuse", "seam_fuse"),
+              (tracking.StereoTracker, "_loop_weld_ba", "welding_ba")]
+    keys = ("verify_candidate", "verify_candidate/match_descriptors")
+    record, tagged, masks = matcher_recorder(set(keys), densest=True)
+    closer = loop_closer(seq, vocab, device, min_gap_kfs=8, n_consistency=2,
+                         fix_scale=True)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(matching, "hamming_match", record), \
+            mock.patch.object(lc, "verify_candidate",
+                              tagged("verify_candidate", lc.verify_candidate)), \
+            mock.patch.object(matching, "match_descriptors",
+                              tagged("match_descriptors", matching.match_descriptors)), \
+            device_ops_per_call(lc.LoopCloser, "_correct") as corrections, \
+            pt.stage_timers(stages) as times:
+        tr, per_on = run_pass(seq, device,
+                              build=lambda s, d: build_kf4_tracker(s, d, loop_closer=closer))
+    sync()
+    counts = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ate_on, gap_on = loop_metrics(seq, tr)
+    bound = ATE_FACTOR * JAX_LOOP_ATE_M + ATE_SLACK_M
+    best = max(closer.hits, key=lambda h: h["n_m"]) if closer.hits else None
+    n_ins = tr._kf_seq
+    n_verify = len(times.get("verify", []))
+    # the stereo path's matcher calls, and 3 per verified candidate
+    min_k2 = LOOP_FRAMES + 2 * (LOOP_FRAMES - 1) + 6 * n_ins + 3 * n_verify
+    log(f"[loop] with the closer: state={tr.track_state} keyframes={len(tr.kf_order)} "
+        f"keyframe_inserts={n_ins} corrections={closer.n_corrections} "
+        f"hits={closer.hits} best={best} ate_rmse_m={ate_on!r} bound_m={bound!r} "
+        f"(jax {JAX_LOOP_ATE_M!r}) revisit_gap_m={gap_on!r} (without {gap_off!r}) "
+        f"launches={counts} min_matcher_calls={min_k2} "
+        f"peak_device_mib={peak / 2**20:.1f} wall={wall:.1f}s")
+    log(f"[timing] {card}: loop scenario with the closer, stages synchronised "
+        f"{frame_stats(per_on)}")
+    pt.print_stages(times, prefix=f"[stages] {card}: loop")
+    for label, ts in times.items():
+        log(f"[stages] {card}: loop {label} per_keyframe_ms="
+            f"{1e3 * sum(ts) / max(n_ins, 1):.3f} over {n_ins} keyframe inserts")
+    for i, (n_ops, ms) in enumerate(corrections):
+        log(f"[loop] {card}: correction {i}: device_ops={n_ops} wall_ms={ms:.1f}"
+            + (" (profiled)" if n_ops is not None else ""))
+    if tr.track_state != TrackState.OK:
+        raise RuntimeError(f"loop final track state {tr.track_state}")
+    if closer.n_corrections < 1 or best is None:
+        raise RuntimeError("the loop never closed on the revisit")
+    cfg = closer.cfg
+    if (best["n_m"] < 2 * cfg.min_bow_matches or best["n_ransac"] < 2 * cfg.min_sim3_inliers
+            or best["n_proj"] < 2 * cfg.min_proj_matches):
+        raise RuntimeError(f"best loop hit without 2x headroom over the gates: {best}")
+    if not ate_on < ate_off:
+        raise RuntimeError(f"loop closing did not improve the ATE: {ate_off} -> {ate_on}")
+    if not gap_on < 0.8 * gap_off:
+        raise RuntimeError(f"revisit gap {gap_on} not below 0.8 x {gap_off}")
+    if not ate_on <= bound:
+        raise RuntimeError(f"loop ATE {ate_on} m over the bound {bound} m")
+    check_launches("loop", counts, LOOP_FRAMES, min_k2)
+    k1_on_frames("loop", seq, (0, LOOP_FRAMES - 1), device)
+    k2_on_masks("loop", masks, keys)
+    return counts
+
+
+def blank_pair():
+    blank = np.zeros((480, 752), np.uint8)
+    return blank, blank
+
+
+def reloc_path(vocab, device, card) -> dict:
+    """Phase 9: tests/test_relocalization.py's blackout at full width: 12
+    frames, 4 blank frames, then a jump to frame 6's pose."""
+    from orb_slam3_vio_fixes_tpu_torch import kernels
+    from orb_slam3_vio_fixes_tpu_torch.frontend import relocalization as rl
+    from orb_slam3_vio_fixes_tpu_torch.frontend.tracking import TrackState
+    from orb_slam3_vio_fixes_tpu_torch.ops import matching
+
+    seq = make_revisit_sequence(3)
+    closer = loop_closer(seq, vocab, device, min_gap_kfs=10**6)
+    reloc = rl.Relocalizer(vocab, lambda: closer.db, device=device)
+    record, tagged, masks = matcher_recorder({"reloc_attempt"}, densest=True)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(matching, "hamming_match", record), \
+            mock.patch.object(rl, "reloc_attempt", tagged("reloc_attempt", rl.reloc_attempt)):
+        tr = build_kf4_tracker(seq, device, loop_closer=closer, relocalizer=reloc)
+        for i in range(12):
+            tr.process_stereo(seq.imgs_l[i], seq.imgs_r[i], seq.ts[i])
+        state_before = tr.track_state
+        for j in range(4):
+            tr.process_stereo(*blank_pair(), 0.6 + 0.05 * j)
+        state_lost = tr.track_state
+        t1 = time.perf_counter()
+        tr.process_stereo(seq.imgs_l[6], seq.imgs_r[6], 0.8)
+        sync()
+        reloc_ms = 1e3 * (time.perf_counter() - t1)
+    counts = kernels.launch_counts()
+    C = -tr.R.cpu().numpy().T @ tr.t.cpu().numpy()
+    err = float(np.linalg.norm(C - seq.t_wc[6]))
+    log(f"[reloc] states={state_before}/{state_lost}/{tr.track_state} "
+        f"keyframes={len(tr.kf_order)} n_success={reloc.n_success} centre_err_m={err!r} "
+        f"relocalising_frame_ms={reloc_ms:.1f} launches={counts} "
+        f"peak_device_mib={torch.cuda.max_memory_allocated() / 2**20:.1f} "
+        f"wall={time.perf_counter() - t0:.1f}s")
+    if state_before != TrackState.OK or state_lost not in (TrackState.RECENTLY_LOST,
+                                                           TrackState.LOST):
+        raise RuntimeError(f"reloc states {state_before} / {state_lost}")
+    if tr.track_state != TrackState.OK or reloc.n_success != 1 or not err < 0.05:
+        raise RuntimeError(f"relocalisation failed: {tr.track_state} "
+                           f"n_success={reloc.n_success} centre error {err} m")
+    check_launches("reloc", counts, 17, 12 + 2 * 11)
+    k1_on_frames("reloc", seq, (0, 6), device)
+    k2_on_masks("reloc", masks, ("reloc_attempt",))
+    return counts
+
+
+def snapshot_check(label, tr, atlas, closer, vocab, device) -> None:
+    """Phase 11: save the Atlas (active map, stored maps, histograms, the
+    vocabulary), load it back and require every array equal."""
+    import tempfile
+
+    from orb_slam3_vio_fixes_tpu_torch import convert
+    from orb_slam3_vio_fixes_tpu_torch.slam_map import snapshot
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/atlas.npz"
+        snapshot.save_atlas(path, tr.state, tr.cfg.map, tr.n_kf, tr.n_lm, tr.kf_order,
+                            atlas.stored, hists=closer.db.hist, vocab=vocab)
+        size = os.path.getsize(path)
+        state, cfg, meta, hists, stored, v2 = snapshot.load_atlas(path, vocab=vocab,
+                                                                  device=device)
+    pairs = [("active", tr.state, state)] + [
+        (f"stored{i}", sm.state, st[0]) for i, (sm, st) in enumerate(zip(atlas.stored, stored))]
+    bad = [f"{name}.{f}" for name, a, b in pairs
+           for f, x in convert.map_state_to_numpy(a).items()
+           if not np.array_equal(x, convert.map_state_to_numpy(b)[f])]
+    if not np.array_equal(hists, closer.db.hist.cpu().numpy()):
+        bad.append("hists")
+    bad += [f"stored{i}.hists" for i, (sm, st) in enumerate(zip(atlas.stored, stored))
+            if not np.array_equal(sm.hists, st[3])]
+    if (len(stored) != len(atlas.stored) or meta["kf_order"] != list(tr.kf_order)
+            or tuple(cfg) != tuple(tr.cfg.map) or v2 is None
+            or not torch.equal(v2.nodes, vocab.nodes)):
+        bad.append("meta")
+    log(f"[snapshot] {label}: stored_maps={len(stored)} bytes={size} "
+        f"seconds={time.perf_counter() - t0:.2f} mismatching={bad}")
+    if bad:
+        raise RuntimeError(f"snapshot round trip differs: {bad}")
+
+
+def atlas_path(vocab, device, card) -> dict:
+    """Phase 10: tests/test_atlas.py's scenario at full width: the tracker
+    stashes its map after 3 lost frames, starts a new one on the replay and
+    merges it into the stored map on the revisit; the Atlas is saved and
+    loaded back after the stash and after the merge (phase 11)."""
+    from orb_slam3_vio_fixes_tpu_torch import kernels
+    from orb_slam3_vio_fixes_tpu_torch.frontend import tracking
+    from orb_slam3_vio_fixes_tpu_torch.frontend.tracking import TrackState
+    from orb_slam3_vio_fixes_tpu_torch.ops import matching
+    from orb_slam3_vio_fixes_tpu_torch.slam_map import atlas as atlas_mod
+
+    seq = make_revisit_sequence(5)
+    cfg = tracker_config(seq, max_frames_between_kf=3)
+    closer = loop_closer(seq, vocab, device, min_gap_kfs=10**6)
+    atl = atlas_mod.Atlas(cfg.map, vocab, camera_of(seq),
+                          tracking.octave_inv_sigma2(cfg.orb, device),
+                          atlas_mod.AtlasConfig(min_stash_kfs=3), device=device)
+    record, tagged, masks = matcher_recorder({"verify_cross_candidate"}, densest=True)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(matching, "hamming_match", record), \
+            mock.patch.object(atlas_mod, "verify_cross_candidate",
+                              tagged("verify_cross_candidate",
+                                     atlas_mod.verify_cross_candidate)):
+        tr = tracking.StereoTracker(camera_of(seq), seq.K[0, 0] * seq.baseline, cfg,
+                                    device=device, loop_closer=closer, atlas=atl)
+        tr.max_lost_frames = 3
+        for i in range(12):
+            tr.process_stereo(seq.imgs_l[i], seq.imgs_r[i], seq.ts[i])
+        first = (tr.track_state, tr.n_kf)
+        for j in range(6):
+            tr.process_stereo(*blank_pair(), 0.6 + 0.05 * j)
+        stashed = (len(atl.stored), tr.map_id, tr.track_state)
+        snapshot_check("after the stash", tr, atl, closer, vocab, device)
+        for i in range(2, 12):
+            tr.process_stereo(seq.imgs_l[i], seq.imgs_r[i], 0.9 + seq.ts[i])
+    sync()
+    counts = kernels.launch_counts()
+    C = -tr.R.cpu().numpy().T @ tr.t.cpu().numpy()
+    err = float(np.linalg.norm(C - seq.t_wc[11]))
+    log(f"[atlas] first map {first} stashed (stored, map_id, state)={stashed} "
+        f"final state={tr.track_state} merges={atl.n_merges} stored={len(atl.stored)} "
+        f"map_id={tr.map_id} keyframes={len(tr.kf_order)} centre_err_m={err!r} "
+        f"launches={counts} peak_device_mib={torch.cuda.max_memory_allocated() / 2**20:.1f} "
+        f"wall={time.perf_counter() - t0:.1f}s")
+    if first[0] != TrackState.OK or first[1] < 3:
+        raise RuntimeError(f"atlas first map: {first}")
+    if stashed != (1, 1, TrackState.NOT_INITIALIZED):
+        raise RuntimeError(f"atlas stash: {stashed}")
+    if (tr.track_state != TrackState.OK or atl.n_merges != 1 or atl.stored
+            or tr.map_id != 2 or not err < 0.10):
+        raise RuntimeError(f"atlas merge failed: state {tr.track_state} merges "
+                           f"{atl.n_merges} map_id {tr.map_id} centre error {err} m")
+    check_launches("atlas", counts, 28, 12 + 2 * 11)
+    snapshot_check("after the merge", tr, atl, closer, vocab, device)
+    k1_on_frames("atlas", seq, (2, 11), device)
+    k2_on_masks("atlas", masks, ("verify_cross_candidate",))
+    return counts
+
+
 def main() -> int:
     card = card_facts()
     device = torch.device("cuda")
@@ -634,6 +1066,21 @@ def main() -> int:
     sync()
     inertial_timing(vi_seq, device, card)
     sync()
+    del vi_seq
+
+    from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary
+
+    vocab = vocabulary.default_vocabulary(device)
+    log(f"[vocab] {vocabulary.ASSET_DIR}/vocab_b10d5.npz words={vocab.n_words} "
+        f"nodes={tuple(vocab.nodes.shape)}")
+    loop_counts = loop_path(make_loop_sequence(), vocab, device, card)
+    sync()
+    reloc_counts = reloc_path(vocab, device, card)
+    sync()
+    atlas_counts = atlas_path(vocab, device, card)
+    sync()
+    by_path = {"stereo": counts, "stereo_inertial": vi_counts, "loop": loop_counts,
+               "relocalization": reloc_counts, "atlas": atlas_counts}
 
     def numbers(label):
         k_ms, _, p_ms, b_ms, b_by = times[label]
@@ -645,14 +1092,12 @@ def main() -> int:
         {"name": "fast_score", "route": "cuda", "source": src + "fast_score.cu",
          "replaces": "orb_slam3_vio_fixes_tpu/ops/pallas_kernels.py:63",
          "launches": counts["fast_score"], **k1,
-         "launches_by_path": {"stereo": counts["fast_score"],
-                              "stereo_inertial": vi_counts["fast_score"]},
+         "launches_by_path": {k: c["fast_score"] for k, c in by_path.items()},
          **numbers("fast_score 2x2380x752")},
         {"name": "hamming_match", "route": "cuda", "source": src + "hamming.cu",
          "replaces": "orb_slam3_vio_fixes_tpu/ops/matching.py:39",
          "launches": counts["hamming_match"], **k2,
-         "launches_by_path": {"stereo": counts["hamming_match"],
-                              "stereo_inertial": vi_counts["hamming_match"]},
+         "launches_by_path": {k: c["hamming_match"] for k, c in by_path.items()},
          **numbers("hamming_match 1024x1024 cols")},
     ]}
     print(json.dumps(report))

@@ -1,7 +1,8 @@
-"""Carry state across from the JAX package: its MapState, Camera, FrameData
-and inertial types (ImuCalib, Preintegrated, BodyState, the VIProblem
-leaves), their fields taken as numpy arrays, into the port's tensors and
-back.
+"""Carry state across from the JAX package: its MapState, Camera, FrameData,
+inertial types (ImuCalib, Preintegrated, BodyState, the VIProblem leaves)
+and place-recognition state (Vocabulary, KeyFrameDatabase, PoseGraphEdges,
+a LoopCloser's database and consistency chain, an Atlas's stored maps),
+their fields taken as numpy arrays, into the port's tensors and back.
 
 The reference's uint32 descriptor words become int32 bit patterns (torch's
 uint32 support is thin); the conversion back restores uint32. Index fields
@@ -47,6 +48,44 @@ def map_state_from_numpy(fields: dict, device) -> MapState:
 
 def map_state_to_numpy(state: MapState) -> dict:
     return {f: _to_numpy(f, getattr(state, f)) for f in MapState._fields}
+
+
+def vocabulary_from_numpy(nodes, weights, branching, depth, device):
+    """The JAX Vocabulary's leaves (uint32 nodes) -> the port's."""
+    from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary as voc
+
+    return voc.from_numpy(np.asarray(nodes), np.asarray(weights), branching, depth,
+                          device)
+
+
+def keyframe_database_from_numpy(hist, device):
+    from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary as voc
+
+    return voc.KeyFrameDatabase(_to_tensor(hist, device))
+
+
+def pose_graph_edges_from_numpy(fields: dict, device):
+    from orb_slam3_vio_fixes_tpu_torch.optim.pose_graph import PoseGraphEdges
+
+    return fields_from_numpy(PoseGraphEdges, fields, device, index=("idx_i", "idx_j"))
+
+
+def load_loop_closer_state(closer, hist, pending_group, pending_count: int,
+                           n_corrections: int = 0) -> None:
+    """Give a port LoopCloser the JAX closer's database rows and temporal
+    consistency chain (its `_pending_group` set and `_pending_count`)."""
+    closer.db = keyframe_database_from_numpy(hist, closer.device)
+    closer._pending_group = None if pending_group is None else set(pending_group)
+    closer._pending_count = int(pending_count)
+    closer.n_corrections = int(n_corrections)
+
+
+def stored_map_from_numpy(fields: dict, n_kf: int, n_lm: int, hists, device):
+    """One entry of the JAX Atlas's `stored` list -> the port's StoredMap."""
+    from orb_slam3_vio_fixes_tpu_torch.slam_map.atlas import StoredMap
+
+    return StoredMap(map_state_from_numpy(fields, device), int(n_kf), int(n_lm),
+                     np.array(hists, np.float32))
 
 
 def camera_from_numpy(fx, fy, cx, cy, dist=(0.0, 0.0, 0.0, 0.0), kind=0) -> Camera:

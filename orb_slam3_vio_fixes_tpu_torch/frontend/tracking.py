@@ -6,9 +6,12 @@ the host state machine in SYNC mode: every frame's decisions complete before
 the next frame starts (the order the reference's pipelined modes are defined
 against). Its subclass hooks (`_can_cull`, `_filter_culls`, `_on_culled`,
 `_peek_kf_slot`, `_freeze_trajectory`) carry the stereo-inertial tracker of
-frontend/inertial_tracking.py. Not ported yet: software pipelining /
-speculation, asynchronous keyframe jobs, loop closing, relocalisation,
-Atlas, the fisheye rig, the RGB-D and monocular entries.
+frontend/inertial_tracking.py. With a `LoopCloser`, a `Relocalizer` and an
+`Atlas` (frontend/loop_closing.py, frontend/relocalization.py,
+slam_map/atlas.py) it relocalises a lost track, spawns a new map after
+`max_lost_frames`, corrects loops and merges maps. Not ported yet: software
+pipelining / speculation, asynchronous keyframe jobs, the fisheye rig, the
+RGB-D and monocular entries.
 
 The map is updated in place (slam_map/map_state.py); the tracker keeps
 clones of any row it holds across a map write.
@@ -408,12 +411,20 @@ class StereoTracker:
     (keyframe insert + triangulation + fusion + local BA + culling)."""
 
     def __init__(self, cam: Camera, bf: float, cfg: TrackerConfig = TrackerConfig(),
-                 *, device):
+                 *, device, loop_closer=None, relocalizer=None, atlas=None):
         ba_core.set_full_f32()
         self.device = torch.device(device)
         self.cam = cam
         self.bf = f32(bf)
         self.cfg = cfg
+        self.loop_closer = loop_closer
+        self.relocalizer = relocalizer
+        self.atlas = atlas
+        self.lost_frames = 0
+        self.max_lost_frames = 20
+        self.frames_since_reloc = 1000      # widened local search after reloc
+        self.map_id = 0                      # active-map ordinal (Atlas)
+        self._corr_epoch = 0                 # loop corrections so far
         self.match_radius = (7.0, 14.0)     # motion-model search th (widened)
         self.th_local_base = 1.0            # local-map search multiplier
         self.state = ms.empty(cfg.map, self.device)
@@ -468,10 +479,12 @@ class StereoTracker:
         return self.process_frame(self._build_stereo(img_l, img_r, ts), ts)
 
     def _local_search_th(self) -> float:
-        """Local-map search radius multiplier: wider while recently lost (the
-        reference's post-relocalisation widening waits for relocalisation)."""
+        """Local-map search radius multiplier: wider while recently lost and
+        for two frames after a relocalisation."""
         if self.track_state == TrackState.RECENTLY_LOST:
             return 3.0
+        if self.frames_since_reloc < 2:
+            return 2.0
         return self.th_local_base
 
     def _local_window(self) -> torch.Tensor:
@@ -493,8 +506,12 @@ class StereoTracker:
             self._initialize(frame)
             self._record(ts)
             return self.R.cpu().numpy(), self.t.cpu().numpy(), self.track_state
-        # RECENTLY_LOST: without a relocaliser the motion-model attempt below
+        if (self.track_state in (TrackState.RECENTLY_LOST, TrackState.LOST)
+                and (self.relocalizer is not None or self.atlas is not None)):
+            return self._recover(frame, ts)
+        # RECENTLY_LOST without a relocaliser: the motion-model attempt below
         # is the recovery path, as in the reference
+        self.frames_since_reloc += 1
         window = self._local_window()
         has_vel = self.vel is not None
         dR, dt = self.vel if has_vel else (None, None)
@@ -504,6 +521,29 @@ class StereoTracker:
             self.match_radius[0], self.match_radius[1], self._local_search_th(),
             cfg, has_vel=has_vel)
         return self._finalize_track(frame, ts, *outs, window)
+
+    def _recover(self, frame, ts: float):
+        """Lost: relocalise against the keyframe database; after
+        `max_lost_frames` failures, state LOST and (with an Atlas) a new
+        map."""
+        hit = (self.relocalizer.relocalize(self.state, frame, self.cam, self.bf, self.cfg)
+               if self.relocalizer is not None else None)
+        if hit is not None:
+            R, t, cur_obs, n_inl = hit
+            self.track_state = TrackState.OK
+            self.lost_frames = 0
+            self.frames_since_reloc = 0
+            self.vel = None
+            self.last_n_inliers = n_inl
+            self._set_frame(frame, R, t, cur_obs)
+        else:
+            self.lost_frames += 1
+            if self.lost_frames > self.max_lost_frames:
+                self.track_state = TrackState.LOST
+                if self.atlas is not None:
+                    self._spawn_new_map()
+        self._record(ts)
+        return self.R.cpu().numpy(), self.t.cpu().numpy(), self.track_state
 
     def _finalize_track(self, frame, ts, R2, t2, cur_obs, packed, R_pred, t_pred,
                         dR_new, dt_new, window):
@@ -528,6 +568,7 @@ class StereoTracker:
             self._record(ts)
             return self.R.cpu().numpy(), self.t.cpu().numpy(), self.track_state
         self.track_state = TrackState.OK
+        self.lost_frames = 0
         if fell_back:
             dR = lie.so3_normalize(R2 @ self.R.T)
             self.vel = (dR, t2 - dR @ self.t)
@@ -535,10 +576,16 @@ class StereoTracker:
             self.vel = (dR_new, dt_new)
         self._set_frame(frame, R2, t2, cur_obs)
         self.frames_since_kf += 1
+        epoch = self._corr_epoch
         if self._need_keyframe(n_inl2_i):
             self._insert_keyframe(frame, R2, t2, cur_obs)
-        R_np = packed[:9].reshape(3, 3).astype(np.float64)
-        t_np = packed[9:12].astype(np.float64)
+        if self._corr_epoch != epoch:
+            # a loop correction re-based the tracker onto the corrected map
+            R_np = self.R.cpu().numpy().astype(np.float64)
+            t_np = self.t.cpu().numpy().astype(np.float64)
+        else:
+            R_np = packed[:9].reshape(3, 3).astype(np.float64)
+            t_np = packed[9:12].astype(np.float64)
         self._record_np(ts, R_np, t_np)
         return R_np, t_np, self.track_state
 
@@ -633,6 +680,10 @@ class StereoTracker:
         self.frames_since_kf = 0
         self.ref_inliers = self.n_lm
         self._refresh_ref_pose(0, (np.eye(3), np.zeros(3)))
+        # the init keyframe needs a database entry too: the revisit of the
+        # map origin is the classic loop seam
+        if self.loop_closer is not None:
+            self.loop_closer.add_keyframe(self.state, 0)
         return True
 
     def _need_keyframe(self, n_inliers: int) -> bool:
@@ -666,6 +717,10 @@ class StereoTracker:
             return
         self.state = ms.grow_map(self.state, mc, new_mc)
         self.cfg = self.cfg._replace(map=new_mc)
+        if self.loop_closer is not None:
+            self.loop_closer.grow(new_mc.max_keyframes)
+        if self.atlas is not None:
+            self.atlas.map_cfg = new_mc
 
     def _insert_keyframe(self, frame, R, t, cur_obs):
         """Keyframe insertion with every local-mapping stage inline:
@@ -728,9 +783,52 @@ class StereoTracker:
     def _on_culled(self, cull):
         """Subclass bookkeeping, called before the keyframes are excised."""
 
+    def _loop_enabled(self) -> bool:
+        """Subclass gate for place recognition."""
+        return True
+
+    def _post_loop_gba(self, kf_id: int):
+        """Hook after a loop correction (the visual global BA already ran in
+        the loop closer)."""
+
+    def _kf_stage_loop(self, kf_id):
+        """Loop detection on the new keyframe; after a correction, fuse
+        duplicates across the seam, run a welding local BA around the
+        keyframe and re-base the tracker onto the corrected map."""
+        mg = self.loop_closer.cfg.min_gap_kfs
+        self.state, res = self.loop_closer.on_keyframe(
+            self.state, kf_id, self.n_kf, recent_slots=self.kf_order[-mg:])
+        if res is None or not res.corrected:
+            return
+        self._loop_seam_fuse(kf_id, res.cand_id)
+        self._loop_weld_ba(kf_id)
+        self._post_loop_gba(kf_id)
+        self._corr_epoch += 1
+        self.R = self.state.kf_R[kf_id].clone()
+        self.t = self.state.kf_t[kf_id].clone()
+        self.vel = None
+
+    def _loop_seam_fuse(self, kf_id, cand):
+        """Fuse the keyframe's landmarks with those of the loop keyframe's
+        temporal neighbourhood."""
+        lcfg = self._lm_cfg()
+        n = lcfg.n_neighbors
+        ci = {k: i for i, k in enumerate(self.kf_order)}.get(cand, 0)
+        seam = self.kf_order[max(0, ci - n // 2):ci + n - n // 2][:n]
+        nb = seam + [-1] * (n - len(seam))
+        self.state = lm_mod.fuse_duplicates_impl(self.state, kf_id, nb, self.cam, lcfg)
+
+    def _loop_weld_ba(self, kf_id):
+        self.state, n_tr = kf_ba_stage(self.state, kf_id, self.kf_order[0], self.cam,
+                                       self.bf, self.cfg)
+        self.ba_truncated = self.ba_truncated + n_tr
+
     def _kf_stage_finalize(self, kf_id):
-        """One pull for the keyframe's bookkeeping scalars and pose; the
-        frame's bindings follow the (fused / culled) keyframe row."""
+        """Loop closing, then one pull for the keyframe's bookkeeping scalars
+        and pose, then the Atlas merge; the frame's bindings follow the
+        (fused / culled / merged) keyframe row."""
+        if self.loop_closer is not None and self._loop_enabled():
+            self._kf_stage_loop(kf_id)
         counts = torch.cat([
             torch.stack([self._kf_nlm_dev.to(torch.float32),
                          (self.state.kf_obs[kf_id] >= 0).sum().to(torch.float32)]),
@@ -739,6 +837,11 @@ class StereoTracker:
         self.ref_inliers = max(int(counts[1]), 1)
         self._refresh_ref_pose(kf_id, (counts[2:11].reshape(3, 3).astype(np.float64),
                                        counts[11:14].astype(np.float64)))
+        if self.atlas is not None and self.atlas.stored:
+            res = self.atlas.try_merge(self.state, kf_id, self.n_kf, self.n_lm)
+            if res is not None:
+                kf_id = self._adopt_merge(res, kf_id)
+                self.ref_inliers = max(int((self.state.kf_obs[kf_id] >= 0).sum()), 1)
         self.prev_obs = self.state.kf_obs[kf_id].clone()
 
     def _cull_keyframes(self):
@@ -798,3 +901,106 @@ class StereoTracker:
         culled = set(cull)
         self.kf_order = [k for k in self.kf_order if k not in culled]
         self._free_kf_slots.extend(sorted(culled))
+
+    # -- Atlas transitions --
+
+    def _spawn_new_map(self):
+        """Stash the active map (if the Atlas keeps it) and restart on an
+        empty one. The database rows go to the host with it (102 MB for the
+        10^5-word vocabulary at 256 keyframes; rare)."""
+        K = self.cfg.map.max_keyframes
+        hists = (self.loop_closer.db.hist.cpu().numpy().copy()
+                 if self.loop_closer is not None else np.zeros((K, 1), np.float32))
+        self._freeze_trajectory()
+        self.atlas.stash_active(self.state, self.n_kf, self.n_lm, hists)
+        self.state = ms.empty(self.cfg.map, self.device)
+        self.n_kf = 0
+        self.kf_order = []
+        self._free_kf_slots = []
+        self.n_lm = 0
+        self.track_state = TrackState.NOT_INITIALIZED
+        self.vel = None
+        self.prev_obs = None
+        self.prev_octave = None
+        self.prev_angle = None
+        self.frames_since_kf = 0
+        self.ref_inliers = 1
+        self.lost_frames = 0
+        self.map_id += 1
+        if self.loop_closer is not None:
+            self.loop_closer.reset()
+
+    def _adopt_merge(self, res, kf_id: int):
+        """Continue on the merged map (the stored map's world frame is
+        kept): keyframe ids move by the offset, then a seam fuse, a welding
+        local BA and the pose graph over the rest of the merged-in map.
+        Returns the keyframe's new id.
+
+        Unlike the reference, the free-slot list moves with the merged-in
+        keyframes: left as it was, it would hand out slots of the stored
+        map's live keyframes."""
+        merged, n_kf, n_lm, kf_off, old_hists = res
+        n_cur = self.n_kf
+        self.state = merged
+        self.n_kf = n_kf
+        self.n_lm = n_lm
+        valid = merged.kf_valid[:n_kf].cpu().numpy()
+        self.kf_order = [k for k in range(n_kf) if valid[k]]
+        self._free_kf_slots = [kf_off + k for k in self._free_kf_slots]
+        new_kf = kf_off + kf_id
+        for e in self.traj:
+            if e[1] >= 0:
+                e[1] += kf_off
+        self.R = self.state.kf_R[new_kf].clone()
+        self.t = self.state.kf_t[new_kf].clone()
+        self.vel = None
+        self.map_id += 1
+        if self.loop_closer is not None:
+            self.loop_closer.rebuild_after_merge(old_hists, kf_off, n_cur)
+        lcfg = self._lm_cfg()
+        kf_R = self.state.kf_R.cpu().numpy()
+        kf_t = self.state.kf_t.cpu().numpy()
+        C_cur = -kf_R[new_kf].T @ kf_t[new_kf]
+        centers = -np.einsum("kji,kj->ki", kf_R[:kf_off], kf_t[:kf_off])
+        near = np.argsort(np.linalg.norm(centers - C_cur, axis=-1))
+        nb = [-1] * lcfg.n_neighbors
+        nb[:min(lcfg.n_neighbors, kf_off)] = [int(k) for k in near[:lcfg.n_neighbors]]
+        self.state = lm_mod.fuse_duplicates_impl(self.state, new_kf, nb, self.cam, lcfg)
+        adj, fixed = select_ba_window_impl(self.state, new_kf, self.kf_order[0], self.cfg)
+        self.state, n_tr = local_ba_impl(self.state, adj, fixed, self.cam, self.bf,
+                                         self.cfg)
+        self.ba_truncated = self.ba_truncated + n_tr
+        self._post_merge(new_kf, kf_off, n_cur, adj, fixed)
+        self._refresh_ref_pose(new_kf)
+        return new_kf
+
+    def _post_merge(self, new_kf, kf_off, n_cur, weld_adj, weld_fixed):
+        """Pose graph over the merged-in keyframes outside the welding
+        window; the window and the whole stored map stay fixed."""
+        from orb_slam3_vio_fixes_tpu_torch.frontend import loop_closing as lc_mod
+        from orb_slam3_vio_fixes_tpu_torch.optim import pose_graph as pg
+
+        K = self.state.kf_R.shape[0]
+        free = np.zeros(K, bool)
+        free[kf_off:kf_off + n_cur] = True
+        wnd = torch.cat([weld_adj, weld_fixed]).cpu().numpy()
+        free[np.clip(wnd[wnd >= 0], 0, K - 1)] = False
+        free &= self.state.kf_valid.cpu().numpy()
+        if not free.any():
+            return
+        edges = pg.essential_edges_from_map(
+            self.state.kf_R.cpu().numpy(), self.state.kf_t.cpu().numpy(),
+            self.state.kf_valid.cpu().numpy(), self.state.kf_prev.cpu().numpy(),
+            ms.covisibility(self.state).cpu().numpy(), 2048, cov_threshold=100,
+            device=self.device)
+        n_valid = int(edges.valid.sum())
+        if n_valid == 0:
+            return      # no constraint: the graph would not move
+        edges = pg.PoseGraphEdges(*(f[:n_valid] for f in edges))
+        R, t, s, _ = pg.optimize_pose_graph(
+            self.state.kf_R, self.state.kf_t, torch.ones(K, device=self.device),
+            torch.as_tensor(~free, device=self.device), edges,
+            pg.PoseGraphConfig(n_iters=10, fix_scale=True))
+        self.state = lc_mod.apply_correction(self.state, R, t, s,
+                                             n_levels=self.cfg.orb.n_levels,
+                                             scale=self.cfg.orb.scale)

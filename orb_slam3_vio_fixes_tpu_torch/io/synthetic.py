@@ -1,7 +1,8 @@
 """Synthetic stereo(-inertial) sequences for the port's end-to-end runs
 (numpy only; port of the stereo part of orb_slam3_vio_fixes_tpu/io/
 synthetic.py: make_world, render, orbit_trajectory, make_stereo_sequence,
-make_stereo_inertial_sequence).
+make_stereo_inertial_sequence, and the loop scenario's render_stereo_along,
+loop_trajectory, make_loop_world, make_loop_stereo_sequence).
 
 A cloud of textured square sprites is rendered along a smooth trajectory by
 a pin-hole stereo pair with a known baseline; ATE against the generator's
@@ -241,3 +242,58 @@ def make_stereo_inertial_sequence(
     ts = np.arange(n_frames) * dt
     return StereoInertialSequence(
         imgs_l, imgs_r, ts, R_wc, t_wc, K, baseline, imu, imu_hz, vel)
+
+
+def render_stereo_along(world, K, R_wc, t_wc, ts, h, w, baseline) -> StereoSequence:
+    """Render a stereo pair at every pose of (R_wc, t_wc)."""
+    n_frames = len(R_wc)
+    imgs_l = np.zeros((n_frames, h, w), np.float32)
+    imgs_r = np.zeros((n_frames, h, w), np.float32)
+    b_off = np.array([baseline, 0.0, 0.0], np.float32)
+    for i in range(n_frames):
+        R_cw = R_wc[i].T
+        imgs_l[i] = render(world, K, R_cw, -R_cw @ t_wc[i], h, w)
+        C_r = t_wc[i] + R_wc[i] @ b_off
+        imgs_r[i] = render(world, K, R_cw, -R_cw @ C_r, h, w)
+    return StereoSequence(imgs_l, imgs_r, np.asarray(ts), np.asarray(R_wc),
+                          np.asarray(t_wc), K, baseline)
+
+
+def loop_trajectory(n_frames, dt=0.05, radius=3.0, look="outward", n_loop=None):
+    """A circle of `radius` in the XZ plane looking radially outward,
+    `n_loop` frames per lap (default n_frames); frames past n_loop drive the
+    start of the lap again (the revisit of a loop-closing run)."""
+    if n_loop is None:
+        n_loop = n_frames
+    R_wc = np.zeros((n_frames, 3, 3), np.float32)
+    t_wc = np.zeros((n_frames, 3), np.float32)
+    for i in range(n_frames):
+        a = 2.0 * np.pi * i / (n_loop - 1)
+        t_wc[i] = radius * np.array([np.sin(a), 0.0, -np.cos(a)], np.float32)
+        R_wc[i] = so3_exp(np.array([0.0, np.pi - a, 0.0], np.float32))
+    return R_wc, t_wc
+
+
+def make_loop_world(rng, n_points=1200, wall_radius=9.0, height=3.0,
+                    depth_jitter=2.0) -> SyntheticWorld:
+    """Sprites on a cylindrical band around the loop trajectory."""
+    a = rng.uniform(0, 2 * np.pi, n_points)
+    r = wall_radius + rng.uniform(-depth_jitter, depth_jitter, n_points)
+    pts = np.stack([r * np.sin(a), rng.uniform(-height, height, n_points),
+                    -r * np.cos(a)], 1).astype(np.float32)
+    tex = rng.uniform(70, 250, size=(n_points, TEX, TEX)).astype(np.float32)
+    tex = np.repeat(np.repeat(tex[:, ::2, ::2], 2, axis=1), 2, axis=2)[:, :TEX, :TEX]
+    return SyntheticWorld(points=pts,
+                          sprite_size=rng.uniform(0.08, 0.2, n_points).astype(np.float32),
+                          sprite_tex=tex)
+
+
+def make_loop_stereo_sequence(rng, n_frames=80, h=240, w=352, fx=260.0, baseline=0.2,
+                              dt=0.05, radius=3.0, wall_radius=9.0, n_points=1200,
+                              n_loop=None) -> StereoSequence:
+    """A stereo sequence around the loop world (the loop-closing scenario)."""
+    world = make_loop_world(rng, n_points=n_points, wall_radius=wall_radius)
+    R_wc, t_wc = loop_trajectory(n_frames, dt, radius=radius, n_loop=n_loop)
+    K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1]], np.float32)
+    return render_stereo_along(world, K, R_wc, t_wc, np.arange(n_frames) * dt, h, w,
+                               baseline)

@@ -2,10 +2,13 @@
 complement (port of orb_slam3_vio_fixes_tpu/optim/ba_core.py).
 
 Ported: reprojection residuals/Jacobians, the motion-only step used by
-`pose_optimize`, and `bundle_adjust` on the reference's `solver="dense"`,
-`dense_solve="cg"` path (dense struct, block-Jacobi PCG reduced-camera
-solve) that local BA uses; the port has only that path, so it has no solver
-options. The matrix-free solver (global BA only) is not ported yet.
+`pose_optimize`, and `bundle_adjust` on two of the reference's solvers:
+`solver="dense"` with `dense_solve="cg"` (dense struct, block-Jacobi PCG on
+the explicit reduced camera system), which local BA uses, and the
+matrix-free `solver="cg"` (the Schur complement applied factor-wise inside
+block-Jacobi PCG, never forming a (P, L) table), which global BA uses. The
+reference's `dense_solve="lu"` and unstructured dense paths are not ported:
+no caller of the port selects them.
 
 Precision: the reference forces full-f32 matmuls (`_full_f32`). On the card
 PyTorch runs float32 matmuls in full float32 only while
@@ -125,6 +128,7 @@ class LMConfig(NamedTuple):
     chi2_stereo: float = CHI2_STEREO
     min_depth: float = 1e-2
     motion_only: bool = False
+    solver: str = "dense"       # "dense" (local windows) or "cg" (whole map)
     cg_iters: int = 40
     dense_max_obs: int = 16
 
@@ -311,6 +315,96 @@ def _assemble_and_solve_dense_struct(problem: BAProblem, inlier, lam,
     return dx_pose, dlm, rho
 
 
+def _factor_blocks(problem: BAProblem, inlier, cfg: LMConfig):
+    """Per-factor cross blocks Hpl_f (F, 6, 3) and the accumulated Hpp
+    (P, 6, 6), Hll (L, 3, 3), bp (P, 6), bl (L, 3), and the robust cost."""
+    P = problem.R.shape[0]
+    L = problem.lm.shape[0]
+    err, Jp, Jl, w, rho = _masked_blocks(problem, inlier, cfg)
+    wJp = w[:, None, None] * Jp
+    wJl = w[:, None, None] * Jl
+    pidx, lidx = problem.factors.pose_idx, problem.factors.lm_idx
+    dev = err.device
+    Hpp = torch.zeros((P, 6, 6), device=dev).index_add_(0, pidx, wJp.transpose(1, 2) @ Jp)
+    Hll = torch.zeros((L, 3, 3), device=dev).index_add_(0, lidx, wJl.transpose(1, 2) @ Jl)
+    bp = torch.zeros((P, 6), device=dev).index_add_(
+        0, pidx, -(wJp.transpose(1, 2) @ err[..., None])[..., 0])
+    bl = torch.zeros((L, 3), device=dev).index_add_(
+        0, lidx, -(wJl.transpose(1, 2) @ err[..., None])[..., 0])
+    return wJp.transpose(1, 2) @ Jl, Hpp, Hll, bp, bl, rho
+
+
+def _mv(A, x):
+    return (A @ x[..., None])[..., 0]
+
+
+def schur_cg_solve(Hpl_f, Hpp_d, Hll_inv, bp, bl, pidx, lidx, free,
+                   cg_iters: int):
+    """Solve the Schur-reduced camera system S dx = rhs by block-Jacobi
+    preconditioned CG without forming S or a (P, L) table: S v = Hpp_d v -
+    Hpl Hll^-1 Hpl^T v, evaluated factor-wise with gathers and index_add.
+    Fixed poses stay at zero. Returns dx_pose (P, 6)."""
+    Pn = Hpp_d.shape[0]
+    L = Hll_inv.shape[0]
+    dev = Hpp_d.device
+    zero = torch.zeros((), device=dev)
+    Hlp_f = Hpl_f.transpose(1, 2)
+
+    def hpl_hinv_hplT(v):
+        y = torch.zeros((L, 3), device=dev).index_add_(0, lidx, _mv(Hlp_f, v[pidx]))
+        q = _mv(Hpl_f, _mv(Hll_inv, y)[lidx])
+        return torch.zeros((Pn, 6), device=dev).index_add_(0, pidx, q)
+
+    def matvec(v):
+        v = torch.where(free[:, None], v, zero)
+        return torch.where(free[:, None], _mv(Hpp_d, v) - hpl_hinv_hplT(v), zero)
+
+    q0 = _mv(Hpl_f, _mv(Hll_inv, bl)[lidx])
+    rhs = bp - torch.zeros((Pn, 6), device=dev).index_add_(0, pidx, q0)
+    rhs = torch.where(free[:, None], rhs, zero)
+    diag_ok = (Hpp_d.abs().sum((-1, -2)) > 1e-9) & free
+    Minv = inv6(torch.where(diag_ok[:, None, None], Hpp_d, torch.eye(6, device=dev)))
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = _mv(Minv, r)
+    p = z
+    rz = (r * z).sum()
+    for _ in range(cg_iters):
+        Ap = matvec(p)
+        pAp = (p * Ap).sum()
+        ok = (pAp > 1e-20) & (rz > 1e-20)
+        alpha = torch.where(ok, rz / torch.where(ok, pAp, 1.0), zero)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = _mv(Minv, r)
+        rz_new = (r * z).sum()
+        beta = torch.where(ok, rz_new / torch.where(rz > 1e-20, rz, 1.0), zero)
+        p = z + beta * p
+        rz = rz_new
+    return torch.where(free[:, None], x, zero)
+
+
+def backsub_landmarks(Hpl_f, Hll_inv, bl, dx_pose, pidx, lidx, lm_dead):
+    """dl = Hll^-1 (bl - Hpl^T dx), factor-wise."""
+    L = Hll_inv.shape[0]
+    y = torch.zeros((L, 3), device=bl.device).index_add_(
+        0, lidx, _mv(Hpl_f.transpose(1, 2), dx_pose[pidx]))
+    dlm = _mv(Hll_inv, bl - y)
+    return torch.where(lm_dead[:, None], torch.zeros((), device=bl.device), dlm)
+
+
+def _assemble_and_solve_cg(problem: BAProblem, inlier, lam, cfg: LMConfig):
+    """Matrix-free LM step (solver="cg")."""
+    Hpl_f, Hpp, Hll, bp, bl, rho = _factor_blocks(problem, inlier, cfg)
+    Hpp_d, Hll_inv, lm_active, free = _damped_blocks(Hpp, Hll, problem.pose_fixed, lam)
+    pidx, lidx = problem.factors.pose_idx, problem.factors.lm_idx
+    dx_pose = schur_cg_solve(Hpl_f, Hpp_d, Hll_inv, bp, bl, pidx, lidx, free,
+                             cfg.cg_iters)
+    dlm = backsub_landmarks(Hpl_f, Hll_inv, bl, dx_pose, pidx, lidx,
+                            problem.lm_fixed | ~lm_active)
+    return dx_pose, dlm, rho
+
+
 def _apply_step(problem: BAProblem, dx_pose, dlm):
     dR, dt = lie.se3_exp(dx_pose)
     R_new = lie.so3_normalize(dR @ problem.R)
@@ -330,7 +424,9 @@ def bundle_adjust(problem: BAProblem, cfg: LMConfig = LMConfig()):
     F_ = problem.factors.valid.shape[0]
     inlier = torch.ones(F_, dtype=torch.bool, device=dev)
     struct = None
-    if not cfg.motion_only:
+    if cfg.solver not in ("dense", "cg"):
+        raise ValueError(f"unknown solver {cfg.solver!r}")
+    if cfg.solver == "dense" and not cfg.motion_only:
         struct = _build_schur_struct(
             problem.factors, problem.lm.shape[0], problem.R.shape[0],
             min(cfg.dense_max_obs, problem.R.shape[0] + 8))
@@ -338,6 +434,8 @@ def bundle_adjust(problem: BAProblem, cfg: LMConfig = LMConfig()):
     def step(p, lam):
         if cfg.motion_only:
             return _assemble_and_solve_motion(p, inlier, lam, cfg)
+        if cfg.solver == "cg":
+            return _assemble_and_solve_cg(p, inlier, lam, cfg)
         return _assemble_and_solve_dense_struct(p, inlier, lam, cfg, struct)
 
     for _ in range(cfg.n_rounds):

@@ -94,3 +94,9 @@ def topk_stable(x: torch.Tensor, k: int):
     are integers and tie constantly)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] for a 0-dim index tensor i, without reading i on the host (plain
+    indexing with a 0-dim device tensor synchronises the stream)."""
+    return x.index_select(0, i.reshape(1))[0]

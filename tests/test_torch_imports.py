@@ -31,6 +31,11 @@ def test_port_imports_without_jax():
         "from orb_slam3_vio_fixes_tpu_torch import profile_track\n"
         "from orb_slam3_vio_fixes_tpu_torch.io import synthetic\n"
         "from orb_slam3_vio_fixes_tpu_torch.evaluation import ate\n"
+        "from orb_slam3_vio_fixes_tpu_torch.frontend import loop_closing, relocalization\n"
+        "from orb_slam3_vio_fixes_tpu_torch.ops import pnp, sim3\n"
+        "from orb_slam3_vio_fixes_tpu_torch.optim import global_ba, pose_graph\n"
+        "from orb_slam3_vio_fixes_tpu_torch.slam_map import atlas, snapshot, vocabulary\n"
+        "assert vocabulary.default_vocabulary('cpu').n_words == 100000\n"
         "import chip_smoke\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
