@@ -1,5 +1,6 @@
-"""Stereo frame construction (port of orb_slam3_vio_fixes_tpu/frontend/frame.py:
-FrameData, sad_subpixel, build_stereo_frame_impl)."""
+"""Stereo and RGB-D frame construction (port of
+orb_slam3_vio_fixes_tpu/frontend/frame.py: FrameData, sad_subpixel,
+build_stereo_frame_impl, build_rgbd_frame)."""
 
 from __future__ import annotations
 
@@ -114,3 +115,22 @@ def build_stereo_frame_impl(img_l: torch.Tensor, img_r: torch.Tensor,
     return FrameData(uv=fl.uv, ur=torch.where(disp > 0, ur, torch.full_like(ur, -1.0)),
                      depth=depth, octave=fl.octave, angle=fl.angle,
                      desc=fl.desc, valid=fl.valid, ts=ts)
+
+
+def build_rgbd_frame(img: torch.Tensor, depth_img: torch.Tensor, ts: torch.Tensor,
+                     cam: Camera, bf: float, cfg: orb.ORBConfig) -> FrameData:
+    """RGB-D: ORB on the one image (a B = 1 atlas through K1), the depth map
+    sampled at each keypoint (coordinates truncated to int and clipped) and
+    a synthetic right coordinate ur = u - bf / z where z > 0. `depth_img`
+    is metric float32, never quantised."""
+    f = orb.extract_batch(to_f32(img)[None], cfg)
+    f = orb.Features(*(a[0] for a in f))
+    H, W = depth_img.shape
+    xi = f.uv[:, 0].to(torch.int32).clamp(0, W - 1).to(torch.int64)
+    yi = f.uv[:, 1].to(torch.int32).clamp(0, H - 1).to(torch.int64)
+    z = depth_img.reshape(-1)[yi * W + xi]
+    has_d = z > 0
+    neg = torch.full_like(z, -1.0)
+    ur = torch.where(has_d, f.uv[:, 0] - bf / torch.clamp(z, min=1e-6), neg)
+    return FrameData(uv=f.uv, ur=ur, depth=torch.where(has_d, z, neg), octave=f.octave,
+                     angle=f.angle, desc=f.desc, valid=f.valid, ts=ts)

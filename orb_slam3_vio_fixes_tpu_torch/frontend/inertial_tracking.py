@@ -16,10 +16,13 @@ reuses its device functions unchanged; it adds
     inertial-only optimisation, map gravity alignment), then the window BA
     and the full-map VI BA.
 
-Waiting for later slices (the tracker raises NotImplementedError when asked):
-relocalisation, Atlas, loop closing and its post-loop / post-merge VI BA,
-the landmark-sharded full-map BA, the RGB-D-inertial entry and the
-monocular-inertial tracker.
+With a `LoopCloser`, a `Relocalizer` and an `Atlas` it also places itself
+in its maps: a relocalisation inside the dead-reckoning window, a new map
+in the Atlas when the window runs out, loop detection once the IMU is
+initialised (the inertial closer's 4-DoF graph, then the full-map VI BA),
+and the MergeInertialBA analogue after a map merge. `process_rgbd_inertial`
+is the IMU_RGBD entry. Waiting for later slices: the landmark-sharded
+full-map BA (`mesh`) and the monocular-inertial tracker.
 """
 
 from __future__ import annotations
@@ -236,10 +239,10 @@ class StereoInertialTracker(trk.StereoTracker):
                  cfg: trk.TrackerConfig = trk.TrackerConfig(),
                  icfg: InertialConfig = InertialConfig(), *, device,
                  loop_closer=None, relocalizer=None, atlas=None):
-        if loop_closer is not None or relocalizer is not None or atlas is not None:
-            raise NotImplementedError(
-                "loop closing, relocalisation and Atlas are not ported yet")
-        super().__init__(cam, bf, cfg, device=device)
+        if getattr(loop_closer, "mesh", None) is not None:
+            raise NotImplementedError("the landmark-sharded VI BA (mesh) is not ported yet")
+        super().__init__(cam, bf, cfg, device=device, loop_closer=loop_closer,
+                         relocalizer=relocalizer, atlas=atlas)
         self.calib = calib
         self.icfg = icfg
         self.imu_ready = False
@@ -260,6 +263,18 @@ class StereoInertialTracker(trk.StereoTracker):
         # the IMU initialisation consumes the dense pre-init chain; culling
         # starts once the map is gravity-aligned
         return self.imu_ready
+
+    def _loop_enabled(self) -> bool:
+        # no place recognition on a pre-init (non-metric, gravity-unaligned)
+        # inertial map
+        return self.imu_ready
+
+    def _local_search_th(self) -> float:
+        """The healthy states search at 1.0 whatever the base (RGB-D sets
+        1.5): widening there admits wrong matches into the joint solves.
+        Only the degraded states (recently lost, just relocalised) widen."""
+        base = super()._local_search_th()
+        return base if base > 1.5 else 1.0
 
     def _next_live(self, k):
         pos = self.kf_order.index(k)
@@ -296,14 +311,6 @@ class StereoInertialTracker(trk.StereoTracker):
 
     # -- helpers --
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """Host array -> device, pinned and non-blocking: a pageable copy in
-        the frame loop would drain the stream."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
-
     @staticmethod
     def _pad(samples, S: int) -> np.ndarray:
         out = np.zeros((S, 7), np.float32)
@@ -337,7 +344,9 @@ class StereoInertialTracker(trk.StereoTracker):
         return self._track_inertial(self._build_stereo(img_l, img_r, ts), ts, imu_np)
 
     def process_rgbd_inertial(self, img, depth, ts: float, imu_np):
-        raise NotImplementedError("the RGB-D-inertial entry is not ported yet")
+        """IMU_RGBD entry: the depth-derived right coordinates feed the same
+        visual-inertial loop."""
+        return self._track_inertial(self._build_rgbd(img, depth, ts), ts, imu_np)
 
     def _track_inertial(self, frame, ts: float, imu_np):
         cfg = self.cfg
@@ -355,10 +364,30 @@ class StereoInertialTracker(trk.StereoTracker):
                 self.body = self._body_of(self.R, self.t, z, z, z)
             self._record(ts)
             return self._pose_out()
+        self.frames_since_reloc += 1
+        if (self.track_state == trk.TrackState.RECENTLY_LOST
+                and self.relocalizer is not None):
+            # visual relocalisation inside the dead-reckoning window
+            hit = self.relocalizer.relocalize(self.state, frame, self.cam, self.bf, cfg)
+            if hit is not None:
+                R, t, cur_obs, n_inl = hit
+                self.track_state = trk.TrackState.OK
+                self._lost_since = None
+                self.lost_frames = 0
+                self.frames_since_reloc = 0
+                self.vel = None
+                self.last_n_inliers = n_inl
+                # keep the dead-reckoned velocity and biases; the pose jumped,
+                # so the marginal prior's linearisation point is void
+                self.body = self._body_of(R, t, *self.body[2:])
+                self.prior_H = torch.eye(15, device=self.device) * 1e2
+                self._set_frame(frame, R, t, cur_obs)
+                self._record(ts)
+                return self._pose_out()
         window = self._local_window()
         th_n, th_w = self.match_radius
         th_l = self._local_search_th()
-        cur_pred = None
+        cur_pred = vel_step = None
         if self.imu_ready:
             (cur_body, next_H, cur_obs, cur_pred, R_pred, t_pred, R2, t2,
              packed) = vi_track_step(
@@ -374,7 +403,7 @@ class StereoInertialTracker(trk.StereoTracker):
             # pre-init: the visual tracker's per-frame path
             has_vel = self.vel is not None
             dRv, dtv = self.vel if has_vel else (None, None)
-            R2, t2, cur_obs, packed, R_pred, t_pred, _, _ = trk.track_step_impl(
+            R2, t2, cur_obs, packed, R_pred, t_pred, *vel_step = trk.track_step_impl(
                 self.state, self.prev_obs, self.prev_octave, self.prev_angle,
                 self.R, self.t, dRv, dtv, frame, window, self.cam, self.bf,
                 th_n, th_w, th_l, cfg, has_vel=has_vel)
@@ -407,7 +436,14 @@ class StereoInertialTracker(trk.StereoTracker):
         self.track_state = trk.TrackState.OK
         pose_np = None
         if packed_np is not None:
-            if prev_pose is not None:
+            if vel_step is not None:
+                # pre-init: the visual step's own velocity, relative to the
+                # previous frame's pose even when that frame took the
+                # reference-keyframe fallback (the reference drops the
+                # velocity model there and loses fast motion, ROADMAP
+                # queue 3)
+                self.vel = tuple(vel_step)
+            elif prev_pose is not None:
                 dR = R2 @ prev_pose[0].T
                 self.vel = (dR, t2 - dR @ prev_pose[1])
             else:
@@ -420,8 +456,9 @@ class StereoInertialTracker(trk.StereoTracker):
             self.vel = (dR, t2 - dR @ self.t)
         self._set_frame(frame, R2, t2, cur_obs)
         self.frames_since_kf += 1
-        if self._need_keyframe(n_inl2) or (not self.imu_ready
-                                           and self.frames_since_kf >= 5):
+        if not self.localization_only and (
+                self._need_keyframe(n_inl2)
+                or (not self.imu_ready and self.frames_since_kf >= 5)):
             self._insert_keyframe_inertial(frame, R2, t2, cur_obs, ts)
             if self.R is not R2:
                 # IMU init or the window BA rebased the tracker: the packed
@@ -435,8 +472,9 @@ class StereoInertialTracker(trk.StereoTracker):
 
     def _handle_lost(self, frame, ts, R_pred, t_pred, cur_obs, cur_pred):
         """IMU dead-reckoning while RECENTLY_LOST, bounded by
-        `recently_lost_time`; a speed blow-up or NaN (bad IMU) and an
-        exhausted budget reset the active map."""
+        `recently_lost_time`; a speed blow-up or NaN (bad IMU) resets the
+        active map. When the budget runs out, a map of >= 10 keyframes goes
+        to the Atlas (a new one starts), a smaller one is dropped."""
         if cur_pred is not None:
             speed = float(torch.linalg.norm(cur_pred.v))
             if not np.isfinite(speed) or speed > self.icfg.max_speed:
@@ -454,7 +492,10 @@ class StereoInertialTracker(trk.StereoTracker):
             return self._pose_out()
         self.track_state = trk.TrackState.LOST
         self._lost_since = None
-        self._reset_active_map_bad_imu()
+        if self.atlas is not None and len(self.kf_order) >= 10:
+            self._spawn_new_map()
+        else:
+            self._reset_active_map_bad_imu()
         self._record(ts)
         return self._pose_out()
 
@@ -481,23 +522,33 @@ class StereoInertialTracker(trk.StereoTracker):
         self.prev_obs = self.prev_octave = self.prev_angle = None
         self.frames_since_kf = 0
         self.ref_inliers = 1
+        self.lost_frames = 0
         self._window_key = None
+        self._reset_inertial_state()
+        if self.loop_closer is not None:
+            self.loop_closer.reset()
+
+    def _spawn_new_map(self):
+        super()._spawn_new_map()
         self._reset_inertial_state()
 
     # -- keyframes --
 
-    def _insert_keyframe_inertial(self, frame, R, t, cur_obs, ts):
-        # the allocator may hand out a reused slot: the IMU window lands on
-        # the slot the keyframe gets
-        kf_id = self._peek_kf_slot()
-        self.kf_windows[kf_id] = self._pad_kf_imu(self.kf_imu_buf)
-        self.kf_imu_buf = []
-        got = self._insert_keyframe(frame, R, t, cur_obs)   # visual stages + BA
-        assert got == kf_id, (got, kf_id)
+    def _on_keyframe_created(self, kf_id: int):
+        # the inertial state goes onto the slot before the keyframe stages, so
+        # that a loop correction rotates it and a merge carries it across
         st = self.state
         st.kf_vel[kf_id] = self.body.v
         st.kf_bg[kf_id] = self.body.bg
         st.kf_ba[kf_id] = self.body.ba
+
+    def _insert_keyframe_inertial(self, frame, R, t, cur_obs, ts):
+        # the allocator may hand out a reused slot: the IMU window lands on
+        # the slot the keyframe gets
+        self.kf_windows[self._peek_kf_slot()] = self._pad_kf_imu(self.kf_imu_buf)
+        self.kf_imu_buf = []
+        # visual stages + BA; an Atlas merge moves the keyframe's slot
+        kf_id = self._insert_keyframe(frame, R, t, cur_obs)
         if not self.imu_ready:
             if (self.n_kf >= self.icfg.init_min_kfs
                     and ts - self.t_first_kf >= self.icfg.init_min_time):
@@ -578,14 +629,15 @@ class StereoInertialTracker(trk.StereoTracker):
         return vi_ba.VIInertialFactors.from_preintegrations(
             idx_d[0], idx_d[1], pres, self._upload(valid))
 
-    def _run_full_inertial_ba(self):
-        """Full-map 15-DoF VI BA, the first live keyframe fixed (run after
-        the IMU initialisation)."""
+    def _run_full_inertial_ba(self, pose_fixed=None):
+        """Full-map 15-DoF VI BA (after the IMU initialisation, as the
+        post-loop global BA, and over a merge seam); `pose_fixed` (K,) bool
+        defaults to the first live keyframe alone."""
         if len(self.kf_order) < 3:
             return
-        K = self.cfg.map.max_keyframes
-        pose_fixed = np.zeros(K, bool)
-        pose_fixed[self.kf_order[0]] = True
+        if pose_fixed is None:
+            pose_fixed = np.zeros(self.cfg.map.max_keyframes, bool)
+            pose_fixed[self.kf_order[0]] = True
         inertial = self._full_map_imu_factors()
         # compact to the live problem size (power-of-2 tiers)
         f_live = max(len(self.kf_order) * self.cfg.map.max_features, 1024)
@@ -596,6 +648,34 @@ class StereoInertialTracker(trk.StereoTracker):
             self.cam, self.bf, self.calib, self._upload(pose_fixed),
             n_levels=self.cfg.orb.n_levels, scale=self.cfg.orb.scale,
             f_budget=f_budget, lm_budget=l_budget)
+
+    def _post_loop_gba(self, kf_id: int):
+        """After a loop correction, the full-map VI BA is the global BA
+        (the facade disables the closer's visual one for inertial maps)."""
+        if self.imu_ready:
+            self._run_full_inertial_ba()
+
+    def _merge_pose_fixed(self, weld_adj, weld_fixed) -> np.ndarray:
+        """(K,) pose-fixed mask of the MergeInertialBA analogue: the seam
+        window (the welding BA's keyframes) free, every other keyframe and
+        the first live one fixed."""
+        K = self.cfg.map.max_keyframes
+        pose_fixed = np.ones(K, bool)
+        wnd = torch.cat([weld_adj, weld_fixed]).cpu().numpy()
+        pose_fixed[np.clip(wnd[wnd >= 0], 0, K - 1)] = False
+        pose_fixed[self.kf_order[0]] = True
+        return pose_fixed
+
+    def _post_merge(self, new_kf, kf_off, n_cur, weld_adj, weld_fixed):
+        # the IMU windows follow the active map's keyframes into their
+        # shifted slots before anything reads them
+        self.kf_windows = {k + kf_off: w for k, w in self.kf_windows.items()}
+        if not self.imu_ready:
+            super()._post_merge(new_kf, kf_off, n_cur, weld_adj, weld_fixed)
+            return
+        # MergeInertialBA analogue: 15-DoF BA over the seam window with
+        # everything else fixed
+        self._run_full_inertial_ba(pose_fixed=self._merge_pose_fixed(weld_adj, weld_fixed))
 
     def _run_inertial_ba(self, kf_id):
         W = self.icfg.vi_window

@@ -9,9 +9,10 @@ against). Its subclass hooks (`_can_cull`, `_filter_culls`, `_on_culled`,
 frontend/inertial_tracking.py. With a `LoopCloser`, a `Relocalizer` and an
 `Atlas` (frontend/loop_closing.py, frontend/relocalization.py,
 slam_map/atlas.py) it relocalises a lost track, spawns a new map after
-`max_lost_frames`, corrects loops and merges maps. Not ported yet: software
-pipelining / speculation, asynchronous keyframe jobs, the fisheye rig, the
-RGB-D and monocular entries.
+`max_lost_frames`, corrects loops and merges maps. `process_rgbd` is the
+RGB-D entry; `localization_only` tracks without inserting keyframes. Not
+ported yet: software pipelining / speculation, asynchronous keyframe jobs,
+the fisheye rig and the monocular entries.
 
 The map is updated in place (slam_map/map_state.py); the tracker keeps
 clones of any row it holds across a map write.
@@ -26,7 +27,8 @@ import numpy as np
 import torch
 
 from orb_slam3_vio_fixes_tpu_torch.frontend import local_mapping as lm_mod
-from orb_slam3_vio_fixes_tpu_torch.frontend.frame import FrameData, build_stereo_frame_impl
+from orb_slam3_vio_fixes_tpu_torch.frontend.frame import (FrameData, build_rgbd_frame,
+                                                       build_stereo_frame_impl)
 from orb_slam3_vio_fixes_tpu_torch.ops import image as image_ops
 from orb_slam3_vio_fixes_tpu_torch.ops import matching, orb
 from orb_slam3_vio_fixes_tpu_torch.optim import ba_core
@@ -427,6 +429,7 @@ class StereoTracker:
         self._corr_epoch = 0                 # loop corrections so far
         self.match_radius = (7.0, 14.0)     # motion-model search th (widened)
         self.th_local_base = 1.0            # local-map search multiplier
+        self.localization_only = False      # track without growing the map
         self.state = ms.empty(cfg.map, self.device)
         self.track_state = TrackState.NOT_INITIALIZED
         self.ba_truncated = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -454,29 +457,62 @@ class StereoTracker:
 
     # -- per-frame entry points --
 
-    def _upload_pair(self, img_l, img_r) -> torch.Tensor:
-        """(2, H, W) uint8 device tensor; host floats quantise to uint8 like
-        the reference's upload."""
-        if isinstance(img_l, torch.Tensor) and img_l.ndim == 3:
-            return img_l.to(self.device)
-        a, b = np.asarray(img_l), np.asarray(img_r)
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> device, pinned and non-blocking: a copy from pageable
+        memory in the frame loop would wait for the stream to drain."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    @staticmethod
+    def _gray_u8(a) -> np.ndarray:
+        """Host floats quantise to uint8 like the reference's upload."""
+        a = np.asarray(a)
         if a.dtype != np.uint8:
             a = np.clip(np.rint(a), 0, 255).astype(np.uint8)
-            b = np.clip(np.rint(b), 0, 255).astype(np.uint8)
-        pair = torch.from_numpy(np.stack([a, b]))
-        if self.device.type == "cuda":
-            # a copy from pageable memory would wait for the stream to drain
-            pair = pair.pin_memory()
-        return pair.to(self.device, non_blocking=True)
+        return a
+
+    def _upload_image(self, img) -> torch.Tensor:
+        """One camera image on the device: device tensors pass through (a
+        rectified float image stays float), host images go up as uint8."""
+        if isinstance(img, torch.Tensor):
+            return img.to(self.device)
+        return self._upload(self._gray_u8(img))
+
+    def _upload_pair(self, img_l, img_r) -> torch.Tensor:
+        """(2, H, W) device tensor of a stereo pair (one upload for host
+        images)."""
+        if isinstance(img_l, torch.Tensor):
+            if img_l.ndim == 3:
+                return img_l.to(self.device)
+            return torch.stack([self._upload_image(img_l), self._upload_image(img_r)])
+        return self._upload(np.stack([self._gray_u8(img_l), self._gray_u8(img_r)]))
+
+    def _ts(self, ts: float) -> torch.Tensor:
+        return torch.full((), ts, dtype=torch.float32, device=self.device)
 
     def _build_stereo(self, img_l, img_r, ts: float) -> FrameData:
         imgs = self._upload_pair(img_l, img_r)
-        return build_stereo_frame_impl(
-            imgs[0], imgs[1], torch.full((), ts, dtype=torch.float32, device=self.device),
-            self.cam, self.bf, self.cfg.orb)
+        return build_stereo_frame_impl(imgs[0], imgs[1], self._ts(ts), self.cam, self.bf,
+                                       self.cfg.orb)
+
+    def _build_rgbd(self, img, depth, ts: float) -> FrameData:
+        """The depth map goes up as metric float32, never quantised."""
+        if isinstance(depth, torch.Tensor):
+            depth_d = depth.to(self.device, torch.float32)
+        else:
+            depth_d = self._upload(np.asarray(depth, np.float32))
+        return build_rgbd_frame(self._upload_image(img), depth_d, self._ts(ts), self.cam,
+                                self.bf, self.cfg.orb)
 
     def process_stereo(self, img_l, img_r, ts: float):
         return self.process_frame(self._build_stereo(img_l, img_r, ts), ts)
+
+    def process_rgbd(self, img, depth, ts: float):
+        """RGB-D entry: the depth sampled at each keypoint becomes a synthetic
+        right coordinate; the rest of the path is the stereo one."""
+        return self.process_frame(self._build_rgbd(img, depth, ts), ts)
 
     def _local_search_th(self) -> float:
         """Local-map search radius multiplier: wider while recently lost and
@@ -577,7 +613,7 @@ class StereoTracker:
         self._set_frame(frame, R2, t2, cur_obs)
         self.frames_since_kf += 1
         epoch = self._corr_epoch
-        if self._need_keyframe(n_inl2_i):
+        if not self.localization_only and self._need_keyframe(n_inl2_i):
             self._insert_keyframe(frame, R2, t2, cur_obs)
         if self._corr_epoch != epoch:
             # a loop correction re-based the tracker onto the corrected map
@@ -724,7 +760,8 @@ class StereoTracker:
 
     def _insert_keyframe(self, frame, R, t, cur_obs):
         """Keyframe insertion with every local-mapping stage inline:
-        create + spawn + triangulate + fuse, local BA, culling, bookkeeping."""
+        create + spawn + triangulate + fuse, local BA, culling, bookkeeping.
+        Returns the keyframe's slot, moved by an Atlas merge if one ran."""
         self._maybe_grow()
         kf_id = self._peek_kf_slot()
         if self._free_kf_slots and kf_id == self._free_kf_slots[0]:
@@ -742,10 +779,15 @@ class StereoTracker:
         self.kf_order.append(kf_id)
         self.frames_since_kf = 0
         self._kf_seq += 1
+        self._on_keyframe_created(kf_id)
         self._kf_stage_ba(kf_id)
         self._kf_stage_cull(kf_id, self._kf_seq)
-        self._kf_stage_finalize(kf_id)
-        return kf_id
+        return self._kf_stage_finalize(kf_id)
+
+    def _on_keyframe_created(self, kf_id: int):
+        """Subclass hook: stamp per-keyframe side state onto the new slot
+        before the keyframe stages (a loop correction or a merge then
+        carries it along)."""
 
     def _peek_kf_slot(self) -> int:
         """The slot the next `_insert_keyframe` takes (free-list head or the
@@ -826,7 +868,8 @@ class StereoTracker:
     def _kf_stage_finalize(self, kf_id):
         """Loop closing, then one pull for the keyframe's bookkeeping scalars
         and pose, then the Atlas merge; the frame's bindings follow the
-        (fused / culled / merged) keyframe row."""
+        (fused / culled / merged) keyframe row. Returns the keyframe's slot
+        after a merge."""
         if self.loop_closer is not None and self._loop_enabled():
             self._kf_stage_loop(kf_id)
         counts = torch.cat([
@@ -843,6 +886,7 @@ class StereoTracker:
                 kf_id = self._adopt_merge(res, kf_id)
                 self.ref_inliers = max(int((self.state.kf_obs[kf_id] >= 0).sum()), 1)
         self.prev_obs = self.state.kf_obs[kf_id].clone()
+        return kf_id
 
     def _cull_keyframes(self):
         """Excise redundant keyframes (protected: the first, the BA window and

@@ -1,8 +1,9 @@
 """Synthetic stereo(-inertial) sequences for the port's end-to-end runs
 (numpy only; port of the stereo part of orb_slam3_vio_fixes_tpu/io/
 synthetic.py: make_world, render, orbit_trajectory, make_stereo_sequence,
-make_stereo_inertial_sequence, and the loop scenario's render_stereo_along,
-loop_trajectory, make_loop_world, make_loop_stereo_sequence).
+make_stereo_inertial_sequence, the loop scenario's render_stereo_along,
+loop_trajectory, make_loop_world, make_loop_stereo_sequence,
+make_loop_stereo_inertial_sequence, and make_rgbd_sequence).
 
 A cloud of textured square sprites is rendered along a smooth trajectory by
 a pin-hole stereo pair with a known baseline; ATE against the generator's
@@ -297,3 +298,72 @@ def make_loop_stereo_sequence(rng, n_frames=80, h=240, w=352, fx=260.0, baseline
     K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1]], np.float32)
     return render_stereo_along(world, K, R_wc, t_wc, np.arange(n_frames) * dt, h, w,
                                baseline)
+
+
+def make_loop_stereo_inertial_sequence(
+        rng, n_frames=88, n_loop=72, h=240, w=352, fx=260.0, baseline=0.2, dt=0.05,
+        imu_hz=200.0, wall_radius=9.0, radius=3.0, n_points=1400, gyro_noise=0.0,
+        acc_noise=0.0) -> StereoInertialSequence:
+    """The loop scenario with exact IMU samples: constant angular rate
+    adot = 2 pi / (dt (n_loop - 1)) on the circle, centripetal world
+    acceleration, gravity (0, -9.81, 0) (the loop lies in the XZ plane, Y
+    up), body frame = camera frame. Draws from `rng` in the reference
+    generator's order."""
+    G = np.array([0.0, -9.81, 0.0], np.float32)
+    world = make_loop_world(rng, n_points=n_points, wall_radius=wall_radius)
+    R_wc, t_wc = loop_trajectory(n_frames, dt, radius=radius, n_loop=n_loop)
+    K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1]], np.float32)
+    adot = 2.0 * np.pi / (dt * (n_loop - 1))
+    spf = int(round(dt * imu_hz))
+    dts = 1.0 / imu_hz
+    imu = np.zeros((n_frames - 1, spf, 7), np.float32)
+    vel = np.zeros((n_frames, 3), np.float32)
+    for i in range(n_frames):
+        a = adot * i * dt
+        vel[i] = radius * adot * np.array([np.cos(a), 0.0, np.sin(a)])
+    omega_w = np.array([0.0, -adot, 0.0], np.float32)
+    for i in range(n_frames - 1):
+        for k in range(spf):
+            a = adot * (i * dt + k * dts)
+            R = so3_exp(np.array([0.0, np.pi - a, 0.0], np.float32))
+            acc_w = -radius * adot * adot * np.array([np.sin(a), 0.0, -np.cos(a)],
+                                                     np.float32)
+            acc_b = R.T @ (acc_w - G) + rng.normal(0, acc_noise, 3)
+            gyr_b = R.T @ omega_w + rng.normal(0, gyro_noise, 3)
+            imu[i, k] = np.concatenate([acc_b, gyr_b, [dts]])
+    s = render_stereo_along(world, K, R_wc, t_wc, np.arange(n_frames) * dt, h, w, baseline)
+    return StereoInertialSequence(s.imgs_l, s.imgs_r, s.ts, R_wc, t_wc, K, baseline, imu,
+                                  imu_hz, vel)
+
+
+class RGBDSequence(NamedTuple):
+    imgs: np.ndarray     # (T, H, W)
+    depths: np.ndarray   # (T, H, W) metric depth (-1 unknown)
+    ts: np.ndarray
+    R_wc: np.ndarray
+    t_wc: np.ndarray
+    K: np.ndarray
+
+
+def render_depth_along(world, K, R_wc, t_wc, h, w):
+    """Gray images and dense depth maps (-1 where no sprite) at every pose."""
+    n = len(R_wc)
+    imgs = np.zeros((n, h, w), np.float32)
+    depths = np.zeros((n, h, w), np.float32)
+    for i in range(n):
+        R_cw = R_wc[i].T
+        imgs[i], depths[i] = render(world, K, R_cw, -R_cw @ t_wc[i], h, w,
+                                    return_depth=True)
+    return imgs, depths
+
+
+def make_rgbd_sequence(rng, n_frames=30, h=240, w=352, fx=260.0, dt=0.05,
+                       speed=(0.8, 0.0, 0.12), yaw_rate=0.06, world=None) -> RGBDSequence:
+    """Gray and dense-depth frames along the orbit trajectory (the RGBD
+    sensor mode)."""
+    K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1]], np.float32)
+    if world is None:
+        world = make_world(rng)
+    R_wc, t_wc = orbit_trajectory(n_frames, dt, speed=speed, yaw_rate=yaw_rate)
+    imgs, depths = render_depth_along(world, K, R_wc, t_wc, h, w)
+    return RGBDSequence(imgs, depths, np.arange(n_frames) * dt, R_wc, t_wc, K)

@@ -94,6 +94,21 @@ def test_port_generator_matches_reference(seq):
                                    err_msg=f)
     np.testing.assert_allclose(vi[1].R_wc, vi[0].R_wc, atol=1e-7)
     assert np.abs(vi[1].imgs_r - vi[0].imgs_r).max() < 0.5
+    # the inertial loop scene and the RGB-D sequence (metric depth maps)
+    lp = [mod.make_loop_stereo_inertial_sequence(
+        np.random.default_rng(5), n_frames=3, n_loop=72, h=H, w=W, fx=260.0,
+        n_points=200) for mod in (jsyn, tsyn)]
+    for f in ("imu", "vel_gt", "t_wc", "ts"):
+        np.testing.assert_allclose(getattr(lp[1], f), getattr(lp[0], f), atol=1e-5,
+                                   err_msg=f)
+    assert np.abs(lp[1].imgs_l - lp[0].imgs_l).max() < 0.5
+    rd = [mod.make_rgbd_sequence(np.random.default_rng(7), n_frames=2, h=H, w=W,
+                                 world=mod.make_world(np.random.default_rng(7), n_points=200))
+          for mod in (jsyn, tsyn)]
+    np.testing.assert_array_equal(rd[1].t_wc, rd[0].t_wc)
+    assert np.abs(rd[1].imgs - rd[0].imgs).max() < 0.5
+    same = np.isclose(rd[1].depths, rd[0].depths, atol=1e-5)
+    assert same.mean() > 0.999 and (rd[0].depths > 0).mean() > 0.02
 
 
 def test_fixed_tables_identical():

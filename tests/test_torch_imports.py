@@ -1,5 +1,9 @@
 """The port runs where JAX is absent: it imports with `jax` blocked, and no
-source of the package (nor chip_smoke.py) imports jax or the JAX package."""
+source of the package (nor chip_smoke.py) imports jax or the JAX package.
+The card's machine has no PyYAML and no PIL either: the port imports with
+both blocked, and no source imports yaml (the dataset loaders import PIL
+inside the functions that read image files, which chip_smoke.py never
+calls)."""
 
 import re
 import subprocess
@@ -11,7 +15,8 @@ PKG = ROOT / "orb_slam3_vio_fixes_tpu_torch"
 
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+orb_slam3_vio_fixes_tpu\b|"
-    r"from\s+orb_slam3_vio_fixes_tpu(\.|\s)|.*\borb_slam3_vio_fixes_tpu\.)",
+    r"from\s+orb_slam3_vio_fixes_tpu(\.|\s)|.*\borb_slam3_vio_fixes_tpu\.|"
+    r"import\s+yaml\b|from\s+yaml\b)",
     re.MULTILINE)
 
 
@@ -20,6 +25,8 @@ def test_port_imports_without_jax():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['orb_slam3_vio_fixes_tpu'] = None\n"
+        "sys.modules['yaml'] = None\n"
+        "sys.modules['PIL'] = None\n"
         "import orb_slam3_vio_fixes_tpu_torch\n"
         "from orb_slam3_vio_fixes_tpu_torch import convert, kernels\n"
         "from orb_slam3_vio_fixes_tpu_torch.frontend.tracking import StereoTracker\n"
@@ -28,7 +35,7 @@ def test_port_imports_without_jax():
         "from orb_slam3_vio_fixes_tpu_torch.imu import preintegration\n"
         "from orb_slam3_vio_fixes_tpu_torch.optim import inertial_init, vi_ba, vi_global_ba\n"
         "from orb_slam3_vio_fixes_tpu_torch.utils import autodiff\n"
-        "from orb_slam3_vio_fixes_tpu_torch import profile_track\n"
+        "from orb_slam3_vio_fixes_tpu_torch import gravity_spread, profile_track\n"
         "from orb_slam3_vio_fixes_tpu_torch.io import synthetic\n"
         "from orb_slam3_vio_fixes_tpu_torch.evaluation import ate\n"
         "from orb_slam3_vio_fixes_tpu_torch.frontend import loop_closing, relocalization\n"
@@ -36,6 +43,12 @@ def test_port_imports_without_jax():
         "from orb_slam3_vio_fixes_tpu_torch.optim import global_ba, pose_graph\n"
         "from orb_slam3_vio_fixes_tpu_torch.slam_map import atlas, snapshot, vocabulary\n"
         "assert vocabulary.default_vocabulary('cpu').n_words == 100000\n"
+        "from orb_slam3_vio_fixes_tpu_torch import sensors, system\n"
+        "from orb_slam3_vio_fixes_tpu_torch.io import datasets, settings, trajectory\n"
+        "from orb_slam3_vio_fixes_tpu_torch.ops import rectify\n"
+        "assert system.Sensor is sensors.Sensor\n"
+        "s = settings.load_settings('configs/EuRoC.yaml', sensors.Sensor.IMU_STEREO)\n"
+        "assert s.T_bc.shape == (4, 4) and s.dist1 is not None\n"
         "import chip_smoke\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

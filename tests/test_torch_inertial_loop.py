@@ -1,0 +1,212 @@
+"""The stereo-inertial tracker with an inertial LoopCloser end to end: port
+twins of tests/test_e2e_inertial_loop.py at its 352x240 size, configuration
+and bars.
+
+The camera circles a sprite wall with exact 200 Hz IMU samples and 2 gray
+levels of image noise; the vocabulary (b10d3) is trained, as the JAX test
+trains its own, on descriptors of every (n_frames // 6)-th frame. Bars (the
+JAX test's): tracking OK with the IMU initialised, at least one loop
+correction, body-frame gravity within 3 degrees (median) and 8 degrees
+(max) over the keyframes, keyframe velocities consistent with the corrected
+positions (median relative error < 0.35), ATE < 0.25 m.
+
+- `test_inertial_loop_closes_early`: a 52-frame lap and 68 frames (16
+  frames of revisit), where the loop closes a few keyframes after the
+  revisit starts; about 80 s on one CPU worker.
+- `test_inertial_loop_keeps_gravity` (slow, ~100 s): the JAX test's 88
+  frames around a 72-frame lap; it does not meet the bars (no correction,
+  see its xfail reason).
+- `test_jax_inertial_loop_reference_at_full_width` and
+  `test_jax_inertial_loop_gravity_across_noise_at_full_width` (slow): where
+  chip_smoke.JAX_SI_LOOP_ATE_M, JAX_SI_LOOP_GRAVITY_DEG and
+  JAX_SI_LOOP_GRAVITY_SPREAD_DEG come from.
+
+The gravity and velocity checks are chip_smoke.gravity_and_velocity, the
+JAX test's arithmetic.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from orb_slam3_vio_fixes_tpu_torch.evaluation import ate
+from orb_slam3_vio_fixes_tpu_torch.frontend import inertial_tracking as it
+from orb_slam3_vio_fixes_tpu_torch.frontend import loop_closing as lc
+from orb_slam3_vio_fixes_tpu_torch.frontend import tracking
+from orb_slam3_vio_fixes_tpu_torch.frontend.frame import build_stereo_frame_impl
+from orb_slam3_vio_fixes_tpu_torch.imu import preintegration as pre
+from orb_slam3_vio_fixes_tpu_torch.io import synthetic
+from orb_slam3_vio_fixes_tpu_torch.ops import orb
+from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
+from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary as voc
+from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera
+
+torch.set_num_threads(2)
+
+
+def make_seq(n_frames, n_loop):
+    rng = np.random.default_rng(5)
+    s = synthetic.make_loop_stereo_inertial_sequence(
+        rng, n_frames=n_frames, n_loop=n_loop, h=240, w=352, fx=260.0, baseline=0.2,
+        radius=3.0, wall_radius=9.0, n_points=1400)
+    noise = rng.normal(0, 2.0, s.imgs_l.shape).astype(np.float32)
+    noise_r = rng.normal(0, 2.0, s.imgs_r.shape).astype(np.float32)
+    return s._replace(imgs_l=s.imgs_l + noise, imgs_r=s.imgs_r + noise_r)
+
+
+def run_loop(seq):
+    n = seq.imgs_l.shape[0]
+    cfg = tracking.TrackerConfig(
+        orb=orb.ORBConfig(n_features=384, n_levels=4),
+        map=ms.MapConfig(max_keyframes=96, max_landmarks=12288, max_features=384),
+        width=352, height=240, max_local_lm=2048, ba_window=6, ba_fixed=2,
+        new_lm_budget=256, max_frames_between_kf=4)
+    icfg = it.InertialConfig(frame_samples=16, kf_samples=128, init_min_kfs=4,
+                             init_min_time=0.5, vi_window=6, max_local_lm=1024,
+                             fix_scale=True)
+    calib = pre.ImuCalib.make(1.7e-4, 2e-3, 1.9e-5, 3e-3, seq.imu_hz, device="cpu")
+    cam = Camera.pinhole(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2])
+    bf = seq.K[0, 0] * seq.baseline
+    pool = []
+    for i in range(0, n, n // 6):
+        q = lambda a: torch.as_tensor(np.clip(np.rint(a), 0, 255).astype(np.uint8))  # noqa: E731
+        f = build_stereo_frame_impl(q(seq.imgs_l[i]), q(seq.imgs_r[i]), torch.zeros(()), cam,
+                                    bf, cfg.orb)
+        pool.append(f.desc[f.valid].numpy())
+    vocab = voc.train(np.concatenate(pool), branching=10, depth=3, seed=0)
+    closer = lc.LoopCloser(
+        vocab, cam, cfg.map.max_keyframes, tracking.octave_inv_sigma2(cfg.orb, "cpu"),
+        lc.LoopConfig(min_gap_kfs=8, n_consistency=2, fix_scale=True, inertial=True,
+                      run_gba=False),
+        bf=bf, n_levels=cfg.orb.n_levels, scale=cfg.orb.scale, device="cpu")
+    tr = it.StereoInertialTracker(cam, bf, calib, cfg, icfg, device="cpu",
+                                  loop_closer=closer)
+    tr.match_radius = (15.0, 30.0)
+    for i in range(n):
+        imu = seq.imu[i - 1] if i > 0 else np.zeros((0, 7), np.float32)
+        tr.process_stereo_inertial(seq.imgs_l[i], seq.imgs_r[i], seq.ts[i], imu)
+    return tr, closer
+
+
+def check_bars(seq, tr, closer):
+    n = seq.imgs_l.shape[0]
+    assert tr.track_state == tracking.TrackState.OK
+    assert tr.imu_ready
+    assert closer.n_corrections >= 1, f"inertial loop never closed: {closer.hits}"
+    order = np.asarray(tr.kf_order)
+    errs, v_err = chip_smoke.gravity_and_velocity(
+        seq, *(getattr(tr.state, f).numpy()[order] for f in ("kf_R", "kf_t", "kf_ts", "kf_vel")))
+    assert np.median(errs) < 3.0, f"gravity misaligned: median {errs} deg"
+    assert errs.max() < 8.0, f"gravity misaligned at some keyframe: {errs.max()}"
+    assert v_err < 0.35, f"velocities inconsistent with corrected poses: {v_err:.2f}"
+    traj = tr.trajectory
+    rmse, _, n_m = ate.ate_rmse(seq.ts, seq.t_wc, np.array([x[0] for x in traj]),
+                                np.array([-R.T @ t for _, R, t in traj]))
+    assert n_m == n
+    assert rmse < 0.25, f"stereo-inertial loop ATE {rmse:.3f}"
+
+
+def test_inertial_loop_closes_early():
+    """A 52-frame lap: the revisit starts at frame 52 and the loop closes
+    there; the hooks run on the way (place recognition from the IMU
+    initialisation on, the 4-DoF correction with its velocity rotation, the
+    post-loop full-map VI BA)."""
+    seq = make_seq(68, 52)
+    tr, closer = run_loop(seq)
+    check_bars(seq, tr, closer)
+    assert tr.n_vi_ba >= 2
+
+
+@pytest.mark.slow
+@pytest.mark.xfail(strict=True, raises=AssertionError, reason=(
+    "measured: all 88 frames tracked, but at 384 features the revisit's "
+    "verifications pass the gates only at keyframes 57, 68 and 70, never two "
+    "in a row, so no correction is made and the ATE is 0.266 m (bar 0.25 m); "
+    "the JAX package's own test of this scene fails at frame 3 on this tree "
+    "(ROADMAP queue 3)"))
+def test_inertial_loop_keeps_gravity():
+    seq = make_seq(88, 72)
+    tr, closer = run_loop(seq)
+    check_bars(seq, tr, closer)
+
+
+def _jax_si_loop(s, with_closer: bool):
+    """The JAX package's StereoInertialTracker on chip_smoke's stereo-inertial
+    loop frames `s` with chip_smoke's configuration, with or without its
+    inertial LoopCloser on the 10^5-word vocabulary, on the CPU: ATE,
+    (gravity median, max) in degrees, velocity error and corrections."""
+    import jax
+
+    from orb_slam3_vio_fixes_tpu.evaluation import ate as jate
+    from orb_slam3_vio_fixes_tpu.frontend import inertial_tracking as jit_
+    from orb_slam3_vio_fixes_tpu.frontend import loop_closing as jlc
+    from orb_slam3_vio_fixes_tpu.frontend import tracking as jtr
+    from orb_slam3_vio_fixes_tpu.imu import preintegration as jpre
+    from orb_slam3_vio_fixes_tpu.ops import orb as jorb
+    from orb_slam3_vio_fixes_tpu.slam_map import map_state as jms
+    from orb_slam3_vio_fixes_tpu.slam_map import vocabulary as jvoc
+    from orb_slam3_vio_fixes_tpu.utils.cameras import Camera as JCamera
+
+    cfg = jtr.TrackerConfig(orb=jorb.ORBConfig(n_features=1024, n_levels=8),
+                            map=jms.MapConfig(256, 32768, 1024), width=752, height=480,
+                            max_frames_between_kf=4)
+    icfg = jit_.InertialConfig(**chip_smoke.SI_LOOP_ICFG)
+    calib = jpre.ImuCalib.make(1.7e-4, 2e-3, 1.9e-5, 3e-3, s.imu_hz)
+    cam = JCamera.pinhole(s.K[0, 0], s.K[1, 1], s.K[0, 2], s.K[1, 2])
+    bf = s.K[0, 0] * s.baseline
+    closer = None
+    if with_closer:
+        closer = jlc.LoopCloser(jvoc.default_vocabulary(), cam, 256,
+                                jtr.octave_inv_sigma2(cfg.orb),
+                                jlc.LoopConfig(**chip_smoke.SI_LOOP_LCFG),
+                                bf=bf, n_levels=8, scale=1.2)
+    tr = jit_.StereoInertialTracker(cam, bf, calib, cfg, icfg, loop_closer=closer)
+    tr.match_radius = chip_smoke.SI_LOOP_RADIUS
+    for i in range(s.imgs_l.shape[0]):
+        imu = s.imu[i - 1] if i > 0 else np.zeros((0, 7), np.float32)
+        tr.process_stereo_inertial(s.imgs_l[i], s.imgs_r[i], s.ts[i], imu)
+    traj = tr.trajectory
+    C = np.array([-R.T @ t for _, R, t in traj])
+    order = np.asarray(tr.kf_order)
+    errs, v_err = chip_smoke.gravity_and_velocity(
+        s, *(np.asarray(getattr(tr.state, f))[order]
+             for f in ("kf_R", "kf_t", "kf_ts", "kf_vel")))
+    jax.clear_caches()
+    return (jate.ate_rmse(s.ts, s.t_wc, np.array([x[0] for x in traj]), C)[0],
+            (float(np.median(errs)), float(errs.max())), v_err,
+            closer.n_corrections if with_closer else 0)
+
+
+@pytest.mark.slow
+def test_jax_inertial_loop_reference_at_full_width():
+    """Where chip_smoke.JAX_SI_LOOP_ATE_M and JAX_SI_LOOP_GRAVITY_DEG come
+    from: the JAX package on chip_smoke's stereo-inertial loop scenario (the
+    JAX generator, the same seed, noise and configuration), with and without
+    the closer. About 8 minutes."""
+    from orb_slam3_vio_fixes_tpu.io import synthetic as jsyn
+
+    s = chip_smoke.make_si_loop_sequence(synthetic=jsyn)
+    ate_on, gravity, v_err, n_corr = _jax_si_loop(s, True)
+    ate_off, _, _, _ = _jax_si_loop(s, False)
+    assert n_corr == 2
+    assert abs(ate_on - chip_smoke.JAX_SI_LOOP_ATE_M) < 1e-6, ate_on
+    np.testing.assert_allclose(gravity, chip_smoke.JAX_SI_LOOP_GRAVITY_DEG, atol=1e-6)
+    assert v_err < chip_smoke.VELOCITY_REL_ERR, v_err
+    assert abs(ate_off - chip_smoke.JAX_SI_LOOP_OFF_ATE_M) < 1e-6, ate_off
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("noise_seed", chip_smoke.SI_LOOP_NOISE_SEEDS)
+def test_jax_inertial_loop_gravity_across_noise_at_full_width(noise_seed):
+    """Where chip_smoke.JAX_SI_LOOP_GRAVITY_SPREAD_DEG comes from: the JAX
+    package with the closer on the same scene with other image-noise draws.
+    About 4 minutes per seed."""
+    from orb_slam3_vio_fixes_tpu.io import synthetic as jsyn
+
+    s = chip_smoke.make_si_loop_sequence(noise_seed=noise_seed, synthetic=jsyn)
+    ate_on, gravity, v_err, n_corr = _jax_si_loop(s, True)
+    print(f"noise_seed={noise_seed} corrections={n_corr} ate_m={ate_on!r} "
+          f"gravity_deg={gravity!r} velocity_rel_err={v_err!r}")
+    np.testing.assert_allclose(
+        gravity, chip_smoke.JAX_SI_LOOP_GRAVITY_SPREAD_DEG[noise_seed], atol=1e-6)
