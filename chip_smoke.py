@@ -84,8 +84,25 @@ Phases, in order (any failure raises and the script exits non-zero):
      plain twin on those atlases), K2 at least once per matcher call
      (RGB-D: no stereo row match), save_atlas -> load_atlas equal; then
      configs/EuRoC.yaml through the port's parser and rectification, the
-     remap of a rendered pair on the card within 1e-3 of the CPU's.
-Each of phases 8-14 prints its K1/K2 launches and peak device memory.
+     remap of a rendered pair on the card within 1e-3 of the CPU's;
+ 15. the app: the host runtime library built from native/orbslam3_tpu_rt.cpp
+     into build/native (a queue round trip, its Hamming matchers exactly
+     against their numpy twins), then the drone-VIO app through its entry
+     point, apps.main_template("euroc", "IMU_STEREO") with --vio-config
+     {"mode": "odometry"} (no port: the MAVLink loopback) and the 10^5-word
+     vocabulary, on phase 14's 36 IMU_STEREO frames written as a EuRoC
+     directory (image files served from memory: the card's machine has no
+     PIL; the 200 Hz mav0/imu0/data.csv): PipelineRunner on the native
+     queue -> SLAMSystem -> MAVLinkInterface. Checks: 36 frames, state OK,
+     the IMU initialised, a TUM file of 36 lines of 8 fields whose ATE is
+     within phase 14's IMU_STEREO bound, the native queue used, one CRC-valid
+     ODOMETRY per frame that had a pose, the last equal to the tracker's
+     final pose in NED within 1e-5, K1 once per frame and K2 at least once
+     per matcher call; K1 exact on two of its atlases, K2 on a local-map
+     search mask of its post-init frames. Prints the runner's stage times
+     and fps beside phase 14's direct IMU_STEREO loop, and the MAVLink
+     layer's ms per frame.
+Each of phases 8-15 prints its K1/K2 launches and peak device memory.
 
 The last lines are one JSON object with the kernels, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -95,6 +112,7 @@ import contextlib
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -231,6 +249,10 @@ ORBextractor.minThFAST: 7
 FACADE_FRAMES = {"STEREO": 40, "RGBD": 30, "IMU_STEREO": 36, "IMU_RGBD": 36}
 JAX_FACADE_ATE_M = {"STEREO": 0.005074487028276547, "RGBD": 0.004336191602072658,
                     "IMU_STEREO": 0.006273376860191582, "IMU_RGBD": 0.00600935824044728}
+
+# Phase 15 writes the facade's IMU_STEREO frames as a EuRoC directory whose
+# stamps start here (nanoseconds).
+APP_T0_NS = 10**9
 
 # The card's peaks for the bounds: HBM3 rate of the H100 SXM, and its INT32
 # rate, a quarter of the 67 TFLOP/s float32 rate (an FMA counts 2 flops, and
@@ -1501,7 +1523,7 @@ def facade_path(device, card) -> dict:
     the final state and ATE checked, the Atlas saved and loaded back through
     the facade; then configs/EuRoC.yaml parsed by the port's own parser and
     rectified, and the rectifying remap on the card held against the CPU.
-    Returns the launch counts per mode."""
+    Returns the launch counts and the seconds of each frame per mode."""
     import tempfile
 
     from orb_slam3_vio_fixes_tpu_torch import convert, kernels
@@ -1510,7 +1532,7 @@ def facade_path(device, card) -> dict:
     from orb_slam3_vio_fixes_tpu_torch.io import synthetic
     from orb_slam3_vio_fixes_tpu_torch.ops import rectify
 
-    by_mode = {}
+    by_mode, frame_s = {}, {}
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "facade.yaml")
         with open(path, "w") as f:
@@ -1560,6 +1582,7 @@ def facade_path(device, card) -> dict:
                 raise RuntimeError(f"facade {mode} snapshot round trip differs: {bad}")
             check_launches(f"facade {mode}", counts, n, min_k2)
             by_mode[mode] = counts
+            frame_s[mode] = per_frame
             del slam, slam2
             if mode == "RGBD":
                 k1_rgbd(frames, device)
@@ -1579,7 +1602,7 @@ def facade_path(device, card) -> dict:
         f"map shape={s.rect.map1.shape} remap_bilinear card vs cpu max_abs_err={err!r}")
     if not err <= 1e-3 or s.rect is None:
         raise RuntimeError(f"EuRoC rectification remap on the card differs: {err}")
-    return by_mode
+    return by_mode, frame_s
 
 
 def k1_rgbd(frames, device) -> None:
@@ -1598,6 +1621,225 @@ def k1_rgbd(frames, device) -> None:
             f"nonzero={int((ref > 0).sum())}")
         if x.shape[0] != 1 or n_bad:
             raise RuntimeError(f"K1 disagrees with its plain twin on the RGB-D frame {i}")
+
+
+def write_euroc_layout(root, frames, ts, t0_ns: int = APP_T0_NS) -> dict:
+    """The facade's stereo-inertial frames as a EuRoC mav0 directory: one
+    empty file per image under its nanosecond stamp (the card's machine has
+    no PIL, so the images are served from memory by the returned lookup in
+    place of datasets.read_image), and the 200 Hz mav0/imu0/data.csv, whose
+    samples reproduce each frame's IMU rows as the runner slices them."""
+    images = {}
+    stamps = [t0_ns + int(round(t * 1e9)) for t in ts]
+    for cam, k in (("cam0", 0), ("cam1", 1)):
+        d = os.path.join(root, "mav0", cam, "data")
+        os.makedirs(d)
+        for ns, fr in zip(stamps, frames):
+            path = os.path.join(d, f"{ns}.png")
+            open(path, "wb").close()
+            images[path] = fr[k].astype(np.float32)
+    os.makedirs(os.path.join(root, "mav0", "imu0"))
+    lines = ["#timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z"]
+    for i in range(1, len(frames)):
+        ns = stamps[i - 1]
+        for row in frames[i][3]:
+            ns += int(round(float(row[6]) * 1e9))
+            lines.append(",".join([str(ns)] + [repr(float(x)) for x in (*row[3:6], *row[:3])]))
+        if ns != stamps[i]:
+            raise RuntimeError(f"IMU samples of frame {i} end at {ns} ns, not {stamps[i]}")
+    with open(os.path.join(root, "mav0", "imu0", "data.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return images
+
+
+def native_runtime_check() -> None:
+    """The host runtime library built from native/orbslam3_tpu_rt.cpp into
+    build/native: a queue round trip, and its Hamming matchers exactly
+    against their numpy twins on random 32-byte descriptors with ties."""
+    from orb_slam3_vio_fixes_tpu_torch.runtime import native
+
+    t0 = time.perf_counter()
+    so = native.build()
+    build_s = time.perf_counter() - t0
+    if not native.native_available():
+        raise RuntimeError(f"the native runtime {so} does not load")
+    q = native.NativeQueue(4, 16, drop_oldest=True)
+    items = [bytes([i]) * 16 for i in range(6)]
+    for it in items:
+        q.push(it)
+    got = [q.pop(timeout_ms=100) for _ in range(4)]
+    q.close()
+    if q._q is None or got != items[2:]:
+        raise RuntimeError("the native queue lost or reordered items")
+    g = np.random.default_rng(0)
+    dq = g.integers(0, 256, (512, 32), dtype=np.uint8)
+    dt = g.integers(0, 256, (2048, 32), dtype=np.uint8)
+    dt[1::7] = dt[0::7][:len(dt[1::7])]          # ties
+    t0 = time.perf_counter()
+    got = native.hamming_match(dq, dt)
+    lib_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ref = native.hamming_match_plain(dq, dt)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    n_bad = sum(int((a != b).sum()) for a, b in zip(got, ref))
+    n_bad += int((native.hamming_matrix(dq, dt) != native.hamming_matrix_plain(dq, dt)).sum())
+    log(f"[native] {so.name} g++_seconds={build_s:.2f} queue round trip ok; "
+        f"hamming_match 512x2048 host ms library={lib_ms:.3f} numpy={plain_ms:.3f} "
+        f"mismatches={n_bad}")
+    if n_bad:
+        raise RuntimeError("the native Hamming matchers disagree with their numpy twins")
+
+
+def app_path(device, card, facade_frame_s) -> dict:
+    """Phase 15: the drone-VIO app through its real entry point,
+    apps.main_template("euroc", "IMU_STEREO") as
+    examples/stereo_inertial_vio.py calls it, on the facade's 36 IMU_STEREO
+    frames written as a EuRoC directory, with MAVLink ODOMETRY on the
+    loopback; launches counted, a local-map search's matcher inputs
+    recorded. Checks the summary, the IMU, the TUM file and its ATE, the
+    native queue, the MAVLink bytes against the tracker's final pose, and
+    K1 / K2 exact on this path's inputs. Returns the launch counts."""
+    import io
+    import tempfile
+    import types
+
+    from orb_slam3_vio_fixes_tpu_torch import apps, kernels
+    from orb_slam3_vio_fixes_tpu_torch.evaluation import ate
+    from orb_slam3_vio_fixes_tpu_torch.frontend import inertial_tracking as it
+    from orb_slam3_vio_fixes_tpu_torch.frontend import tracking
+    from orb_slam3_vio_fixes_tpu_torch.io import datasets, synthetic
+    from orb_slam3_vio_fixes_tpu_torch.ops import matching
+    from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary
+    from orb_slam3_vio_fixes_tpu_torch.vio import camera_to_ned, mavlink, parse_frames
+
+    native_runtime_check()
+    mode = "IMU_STEREO"
+    n = FACADE_FRAMES[mode]
+    frames, ts, t_wc = facade_scenario(mode, synthetic)
+    runners, links = [], []
+
+    class Runner(apps.PipelineRunner):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            runners.append(self)
+
+        def run(self):
+            self.result = super().run()
+            return self.result
+
+    class Loopback(apps.LoopbackTransport):
+        def __init__(self):
+            super().__init__()
+            links.append(self)
+
+    link_s = {"publish": [], "drain": []}
+
+    class Link(apps.MAVLinkInterface):
+        """Times the producer side (NED conversion, queue) per frame and the
+        drain (encoding, transport) once."""
+
+        def publish_pose(self, *a, **k):
+            t = time.perf_counter()
+            super().publish_pose(*a, **k)
+            link_s["publish"].append(time.perf_counter() - t)
+
+        def drain(self):
+            t = time.perf_counter()
+            super().drain()
+            link_s["drain"].append(time.perf_counter() - t)
+
+    key = "vi_track_step/local_map_search"
+    record, tagged, masks = matcher_recorder({key})
+    with tempfile.TemporaryDirectory() as d:
+        yaml_path = os.path.join(d, "app.yaml")
+        with open(yaml_path, "w") as f:
+            f.write(FACADE_YAML)
+        cfg_path = os.path.join(d, "vio.json")
+        with open(cfg_path, "w") as f:
+            json.dump({"mode": "odometry"}, f)
+        images = write_euroc_layout(os.path.join(d, "seq"), frames, ts)
+        out = os.path.join(d, "traj.txt")
+        argv = [yaml_path, os.path.join(d, "seq"), out, "--vio-config", cfg_path,
+                "--vocab", os.path.join(vocabulary.ASSET_DIR, "vocab_b10d5.npz")]
+        stdout = io.StringIO()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(datasets, "read_image", images.__getitem__), \
+                mock.patch.object(apps, "PipelineRunner", Runner), \
+                mock.patch.object(apps, "LoopbackTransport", Loopback), \
+                mock.patch.object(apps, "MAVLinkInterface", Link), \
+                mock.patch.object(matching, "hamming_match", record), \
+                mock.patch.object(it, "vi_track_step", tagged("vi_track_step", it.vi_track_step)), \
+                mock.patch.object(tracking, "local_map_search",
+                                  tagged("local_map_search", tracking.local_map_search)), \
+                contextlib.redirect_stdout(stdout):
+            rc = apps.main_template("euroc", mode, "drone VIO app", argv=argv)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        summary = json.loads(stdout.getvalue())
+        rows = np.loadtxt(out, ndmin=2)
+        n_fields = {len(line.split()) for line in open(out) if line.strip()}
+    runner, = runners
+    slam, tr = runner.system, runner.system.tracker
+    rmse, _, n_ate = ate.ate_rmse(ts + APP_T0_NS * 1e-9, t_wc, rows[:, 0], rows[:, 1:4])
+    jax_ate = JAX_FACADE_ATE_M[mode]
+    bound = ATE_FACTOR * jax_ate + ATE_SLACK_M
+    n_ins = tr._kf_seq
+    min_k2 = n + 2 * (n - 1) + 6 * n_ins
+    msgs = parse_frames(bytes(links[0].buffer)) if len(links) == 1 else []
+    R_cw, t_cw = tr.R.cpu().numpy().astype(np.float64), tr.t.cpu().numpy().astype(np.float64)
+    ned = camera_to_ned(R_cw.T, -R_cw.T @ t_cw)
+    last = (np.array(struct.unpack("<7f", msgs[-1]["payload"][8:36]))
+            if msgs else np.full(7, np.nan))
+    pose_err = float(np.abs(last - np.concatenate([ned["pos"], ned["quat"]])).max())
+    st = summary["stage_times"]
+    log(f"[app] main_template(euroc, IMU_STEREO): rc={rc} frames={summary['n_frames']} "
+        f"state={summary['final_state']} imu_ready={tr.imu_ready} "
+        f"keyframes={summary['n_keyframes']} keyframe_inserts={n_ins} "
+        f"native_queue={runner.used_native_queue} trajectory_lines={len(rows)} "
+        f"fields={sorted(n_fields)} ate_rmse_m={rmse!r} bound_m={bound!r} (jax {jax_ate!r}) "
+        f"odometry_frames={sum(m['msgid'] == mavlink.MSG_ODOMETRY for m in msgs)} "
+        f"of {len(msgs)} crc_ok={all(m['crc_ok'] for m in msgs)} "
+        f"last_pose_ned_max_abs_err={pose_err!r} launches={counts} "
+        f"min_matcher_calls={min_k2} peak_device_mib="
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} wall={wall:.1f}s")
+    def ms_stats(x):
+        x = 1e3 * np.asarray(x)
+        return (f"p50={float(np.percentile(x, 50))!r} max={float(x.max())!r} "
+                f"sum={float(x.sum())!r}")
+
+    direct = facade_frame_s[mode]
+    log(f"[timing] {card}: app runner fps={runner.result.fps!r} track_ms "
+        f"{ms_stats(runner.times.series['track'])}; facade IMU_STEREO direct loop on "
+        f"the same frames fps={len(direct) / sum(direct)!r} frame_ms "
+        f"{ms_stats(direct)}; decode_ms mean={st['decode']['mean_ms']!r} "
+        f"mavlink_ms per frame: publish="
+        f"{1e3 * float(np.mean(link_s['publish']))!r} drain="
+        f"{1e3 * sum(link_s['drain']) / max(len(msgs), 1)!r}")
+    if rc != 0 or summary["n_frames"] != n or summary["final_state"] != "OK":
+        raise RuntimeError(f"app run: rc={rc} summary={summary}")
+    if not tr.imu_ready:
+        raise RuntimeError("app run: the IMU never initialised")
+    if len(rows) != n or n_fields != {8}:
+        raise RuntimeError(f"app TUM file: {len(rows)} lines of {n_fields} fields")
+    if n_ate != n or not rmse <= bound:
+        raise RuntimeError(f"app ATE {rmse} m over {n_ate} frames, bound {bound} m")
+    if not runner.used_native_queue:
+        raise RuntimeError("the runner fell back from the native queue")
+    if (len(msgs) != len(tr.traj) or len(msgs) != n
+            or any(m["msgid"] != mavlink.MSG_ODOMETRY or not m["crc_ok"] for m in msgs)):
+        raise RuntimeError(f"app MAVLink: {len(msgs)} frames for {len(tr.traj)} posed frames")
+    if not pose_err <= 1e-5:
+        raise RuntimeError(f"the last ODOMETRY is {pose_err} off the tracker's pose in NED")
+    check_launches("app", counts, n, min_k2)
+    seq = types.SimpleNamespace(imgs_l=np.stack([f[0] for f in frames]),
+                                imgs_r=np.stack([f[1] for f in frames]))
+    k1_on_frames("app", seq, (0, n - 1), device)
+    k2_on_masks("app", masks, (key,))
+    return counts
 
 
 def main() -> int:
@@ -1651,8 +1893,10 @@ def main() -> int:
     phase("si_loop", si_loop_path, vocab, device, card)
     phase("si_atlas", si_atlas_path, vocab, device, card)
     del vocab
-    for mode, counts in facade_path(device, card).items():
+    facade_counts, facade_frame_s = facade_path(device, card)
+    for mode, counts in facade_counts.items():
         by_path[f"facade_{mode.lower()}"] = counts
+    phase("app", app_path, device, card, facade_frame_s)
     log(f"[phase] seconds={phase_s}")
     counts = by_path["stereo"]
 

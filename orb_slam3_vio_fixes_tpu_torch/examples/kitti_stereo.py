@@ -1,0 +1,7 @@
+"""Stereo KITTI (Examples/Stereo/stereo_kitti.cc analogue)."""
+import sys
+
+from orb_slam3_vio_fixes_tpu_torch.apps import main_template
+
+if __name__ == "__main__":
+    sys.exit(main_template("kitti", "STEREO", __doc__))

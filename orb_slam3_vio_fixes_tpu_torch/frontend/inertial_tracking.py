@@ -364,6 +364,14 @@ class StereoInertialTracker(trk.StereoTracker):
                 self.body = self._body_of(self.R, self.t, z, z, z)
             self._record(ts)
             return self._pose_out()
+        if self.body is None:
+            # a loaded map (SLAMSystem.load_atlas) carries no IMU state:
+            # relocalise into it; its IMU initialises anew from there
+            out = self._recover(frame, ts)
+            if self.track_state == trk.TrackState.OK:
+                z = torch.zeros(3, device=self.device)
+                self.body = self._body_of(self.R, self.t, z, z, z)
+            return out
         self.frames_since_reloc += 1
         if (self.track_state == trk.TrackState.RECENTLY_LOST
                 and self.relocalizer is not None):
@@ -543,14 +551,22 @@ class StereoInertialTracker(trk.StereoTracker):
         st.kf_ba[kf_id] = self.body.ba
 
     def _insert_keyframe_inertial(self, frame, R, t, cur_obs, ts):
-        # the allocator may hand out a reused slot: the IMU window lands on
-        # the slot the keyframe gets
-        self.kf_windows[self._peek_kf_slot()] = self._pad_kf_imu(self.kf_imu_buf)
+        if self.t_first_kf is None:
+            # the first keyframe after relocalising into a loaded map starts
+            # the IMU chain: no window leads to it
+            self.t_first_kf = ts
+        else:
+            # the allocator may hand out a reused slot: the IMU window lands
+            # on the slot the keyframe gets
+            self.kf_windows[self._peek_kf_slot()] = self._pad_kf_imu(self.kf_imu_buf)
         self.kf_imu_buf = []
         # visual stages + BA; an Atlas merge moves the keyframe's slot
         kf_id = self._insert_keyframe(frame, R, t, cur_obs)
         if not self.imu_ready:
+            # keyframes of the IMU chain: all of a new map's, a loaded map's
+            # since the relocalisation
             if (self.n_kf >= self.icfg.init_min_kfs
+                    and len(self.kf_windows) + 1 >= self.icfg.init_min_kfs
                     and ts - self.t_first_kf >= self.icfg.init_min_time):
                 self._initialize_imu()
         else:

@@ -165,11 +165,13 @@ class SLAMSystem:
     def track_rgbd(self, img, depth, ts: float, imu=None):
         if not self.sensor.is_rgbd:
             raise ValueError(f"track_rgbd called in {self.sensor} mode")
-        if self.sensor == Sensor.IMU_RGBD:
-            return self.tracker.process_rgbd_inertial(img, depth, ts, self._no_imu(imu))
+        # a distorted camera is undistorted in both modes (the reference skips
+        # the remap with an IMU)
         if self._undist_map is not None:
             img = rec.remap_bilinear(self._to_f32(img), self._undist_map)
             depth = rec.remap_nearest(self._to_f32(depth), self._undist_map)
+        if self.sensor == Sensor.IMU_RGBD:
+            return self.tracker.process_rgbd_inertial(img, depth, ts, self._no_imu(imu))
         return self.tracker.process_rgbd(img, depth, ts)
 
     def track_monocular(self, img, ts: float, imu=None):
@@ -285,6 +287,11 @@ class SLAMSystem:
         tr.track_state = trk.TrackState.LOST
         tr.lost_frames = 0
         tr.vel = None
+        if isinstance(tr, StereoInertialTracker):
+            # the snapshot holds no IMU windows, and the previous map's name
+            # its keyframe slots: the loaded map re-initialises its IMU after
+            # the relocalisation (the reference keeps them)
+            tr._reset_inertial_state()
         if self.atlas is not None:
             self.atlas.stored = [atlas_mod.StoredMap(*sm) for sm in stored]
         if self.loop_closer is not None:

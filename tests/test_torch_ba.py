@@ -7,7 +7,6 @@ sums taken in another order; the chi2 gates see the same residuals to
 ~1e-6), inlier masks identical.
 """
 
-import gc
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -23,16 +22,6 @@ from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera as TCamera
 from test_ba import BF, CAM, make_scene, perturb
 
 torch.set_num_threads(2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    """Free the JAX executables this module compiled once it ends: each holds
-    hundreds of memory mappings, and an xdist worker that runs several
-    compile-heavy files can reach the per-process mapping limit."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 TCAM = TCamera.pinhole(458.0, 457.0, 320.0, 240.0)

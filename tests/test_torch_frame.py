@@ -18,8 +18,6 @@ Tolerances and why:
     keypoints both sides stereo-match — float32 SAD sums in another order.
 """
 
-import gc
-import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -39,16 +37,6 @@ from orb_slam3_vio_fixes_tpu_torch.ops import orb as torb
 from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera as TCamera
 
 torch.set_num_threads(2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    """Free the JAX executables this module compiled once it ends: each holds
-    hundreds of memory mappings, and an xdist worker that runs several
-    compile-heavy files can reach the per-process mapping limit."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 H, W = 240, 352

@@ -9,9 +9,7 @@ BA on a converted map within 1e-3 (poses, landmarks) with the same
 unbound observations and inlier count.
 """
 
-import gc
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,13 +28,6 @@ from test_global_ba import _build_map, _perturb_map
 torch.set_num_threads(2)
 
 TCAM = TCamera.pinhole(CAM.fx, CAM.fy, CAM.cx, CAM.cy)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 def T(a, dtype=None):

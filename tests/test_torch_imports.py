@@ -1,9 +1,13 @@
 """The port runs where JAX is absent: it imports with `jax` blocked, and no
 source of the package (nor chip_smoke.py) imports jax or the JAX package.
-The card's machine has no PyYAML and no PIL either: the port imports with
-both blocked, and no source imports yaml (the dataset loaders import PIL
-inside the functions that read image files, which chip_smoke.py never
-calls)."""
+The card's machine has no PyYAML, PIL or matplotlib either: the port imports
+with all three blocked, and no source imports yaml (the dataset loaders and
+the viewer import PIL and matplotlib inside the functions that read or
+write image files, which chip_smoke.py never calls).
+
+This module also loads the test suite's plugin that frees JAX's compiled
+executables at every module boundary (tests/torch_jax_release.py): every
+worker collects this module, so the hook is live in every worker."""
 
 import re
 import subprocess
@@ -12,6 +16,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "orb_slam3_vio_fixes_tpu_torch"
+
+pytest_plugins = ["torch_jax_release"]
 
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+orb_slam3_vio_fixes_tpu\b|"
@@ -27,6 +33,7 @@ def test_port_imports_without_jax():
         "sys.modules['orb_slam3_vio_fixes_tpu'] = None\n"
         "sys.modules['yaml'] = None\n"
         "sys.modules['PIL'] = None\n"
+        "sys.modules['matplotlib'] = None\n"
         "import orb_slam3_vio_fixes_tpu_torch\n"
         "from orb_slam3_vio_fixes_tpu_torch import convert, kernels\n"
         "from orb_slam3_vio_fixes_tpu_torch.frontend.tracking import StereoTracker\n"
@@ -35,7 +42,7 @@ def test_port_imports_without_jax():
         "from orb_slam3_vio_fixes_tpu_torch.imu import preintegration\n"
         "from orb_slam3_vio_fixes_tpu_torch.optim import inertial_init, vi_ba, vi_global_ba\n"
         "from orb_slam3_vio_fixes_tpu_torch.utils import autodiff\n"
-        "from orb_slam3_vio_fixes_tpu_torch import gravity_spread, profile_track\n"
+        "from orb_slam3_vio_fixes_tpu_torch import gravity_spread, phase_repeat, profile_track\n"
         "from orb_slam3_vio_fixes_tpu_torch.io import synthetic\n"
         "from orb_slam3_vio_fixes_tpu_torch.evaluation import ate\n"
         "from orb_slam3_vio_fixes_tpu_torch.frontend import loop_closing, relocalization\n"
@@ -49,6 +56,14 @@ def test_port_imports_without_jax():
         "assert system.Sensor is sensors.Sensor\n"
         "s = settings.load_settings('configs/EuRoC.yaml', sensors.Sensor.IMU_STEREO)\n"
         "assert s.T_bc.shape == (4, 4) and s.dist1 is not None\n"
+        "from orb_slam3_vio_fixes_tpu_torch import apps, runtime, vio, viz\n"
+        "from orb_slam3_vio_fixes_tpu_torch.runtime import actors, native\n"
+        "from orb_slam3_vio_fixes_tpu_torch.vio import frames, interface, mavlink, uart\n"
+        "from orb_slam3_vio_fixes_tpu_torch.viz import frame_drawer, map_drawer, viewer\n"
+        "from orb_slam3_vio_fixes_tpu_torch.examples import (\n"
+        "    euroc_multisession, euroc_stereo, euroc_stereo_inertial, kitti_stereo,\n"
+        "    stereo_inertial_vio, tum_rgbd)\n"
+        "assert apps.PipelineRunner is runtime.PipelineRunner\n"
         "import chip_smoke\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

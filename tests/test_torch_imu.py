@@ -8,7 +8,6 @@ for entries near zero); the covariances within rtol 1e-4 of their largest
 entry: float32 sums over up to 256 steps taken in another order.
 """
 
-import gc
 
 import jax
 import jax.numpy as jnp
@@ -22,15 +21,6 @@ from orb_slam3_vio_fixes_tpu_torch import convert
 from orb_slam3_vio_fixes_tpu_torch.imu import preintegration as tpre
 
 torch.set_num_threads(2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    """Free the JAX executables this module compiled once it ends (each holds
-    memory mappings; an xdist worker has a per-process limit)."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 ARGS = (1.7e-4, 2e-3, 1.9e-5, 3e-3, 200.0)

@@ -22,10 +22,8 @@ Tolerances:
 - `_loop_enabled`, `_local_search_th` and the Atlas spawn exact.
 """
 
-import gc
 import types
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -53,14 +51,6 @@ torch.set_num_threads(2)
 
 N_FRAMES = 36
 LOST_TIME = 0.2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    """Free the JAX executables this module compiled once it ends."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 @pytest.fixture(scope="module")

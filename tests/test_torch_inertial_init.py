@@ -11,9 +11,7 @@ within rtol 1e-4, the first chi2 within rtol 1e-3 and the converged last one
 within 1e-3 absolute (a sum of near-zero squares).
 """
 
-import gc
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,14 +26,6 @@ from orb_slam3_vio_fixes_tpu_torch.optim import inertial_init as tii
 from test_inertial_init import _build_factors, _simulate
 
 torch.set_num_threads(2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    """Free the JAX executables this module compiled once it ends."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 def t(x):

@@ -210,3 +210,76 @@ def test_jax_inertial_loop_gravity_across_noise_at_full_width(noise_seed):
           f"gravity_deg={gravity!r} velocity_rel_err={v_err!r}")
     np.testing.assert_allclose(
         gravity, chip_smoke.JAX_SI_LOOP_GRAVITY_SPREAD_DEG[noise_seed], atol=1e-6)
+
+
+@pytest.mark.slow
+def test_imu_init_from_reference_state_at_full_width():
+    """Where the SI loop's gravity offset on the card arises: the JAX
+    tracker on chip_smoke's stereo-inertial loop frames at 752x480 (no
+    closer: place recognition starts after the IMU initialisation) up to
+    its IMU initialisation, and the port's _initialize_imu run from the JAX
+    tracker's own pre-init state, as test_torch_inertial_slice.py does at
+    352x240. Bar: the body-frame gravity of every live keyframe within 0.1
+    degree of the JAX package's, so that any larger offset comes from before
+    the initialisation (tracking's float32, the pre-init velocity model).
+    About 5 minutes on the CPU."""
+    import jax
+
+    from orb_slam3_vio_fixes_tpu.frontend import inertial_tracking as jit_
+    from orb_slam3_vio_fixes_tpu.frontend import tracking as jtr
+    from orb_slam3_vio_fixes_tpu.imu import preintegration as jpre
+    from orb_slam3_vio_fixes_tpu.io import synthetic as jsyn
+    from orb_slam3_vio_fixes_tpu.ops import orb as jorb
+    from orb_slam3_vio_fixes_tpu.slam_map import map_state as jms
+    from orb_slam3_vio_fixes_tpu.utils.cameras import Camera as JCamera
+    from orb_slam3_vio_fixes_tpu_torch import convert
+
+    s = chip_smoke.make_si_loop_sequence(synthetic=jsyn)
+    cfg = jtr.TrackerConfig(orb=jorb.ORBConfig(n_features=1024, n_levels=8),
+                            map=jms.MapConfig(256, 32768, 1024), width=752, height=480,
+                            max_frames_between_kf=4)
+    icfg = jit_.InertialConfig(**chip_smoke.SI_LOOP_ICFG)
+    cam = JCamera.pinhole(s.K[0, 0], s.K[1, 1], s.K[0, 2], s.K[1, 2])
+    ref = jit_.StereoInertialTracker(cam, s.K[0, 0] * s.baseline,
+                                     jpre.ImuCalib.make(1.7e-4, 2e-3, 1.9e-5, 3e-3, s.imu_hz),
+                                     cfg, icfg)
+    ref.match_radius = chip_smoke.SI_LOOP_RADIUS
+    init = {}
+    real = ref._initialize_imu
+
+    def captured():
+        init["before"] = ({f: np.array(getattr(ref.state, f), copy=True)
+                           for f in jms.MapState._fields},
+                          dict(ref.kf_windows), list(ref.kf_order), ref.n_kf, ref.n_lm)
+        real()
+        init["after"] = {f: np.array(getattr(ref.state, f), copy=True)
+                         for f in ("kf_R", "kf_t", "kf_ts", "kf_vel")}
+
+    ref._initialize_imu = captured
+    i = 0
+    while "after" not in init:
+        imu = s.imu[i - 1] if i > 0 else np.zeros((0, 7), np.float32)
+        ref.process_stereo_inertial(s.imgs_l[i], s.imgs_r[i], s.ts[i], imu)
+        i += 1
+        assert i < 40, "the JAX tracker never initialised its IMU"
+    jax.clear_caches()
+
+    fields, windows, order, n_kf, n_lm = init["before"]
+    tr = chip_smoke.build_si_loop_tracker(s, "cpu")
+    tr.state = convert.map_state_from_numpy(fields, "cpu")
+    tr.kf_windows = {k: np.asarray(w) for k, w in windows.items()}
+    tr.kf_order, tr.n_kf, tr.n_lm = order, n_kf, n_lm
+    tr._initialize_imu()
+    live = np.asarray(order)
+    got = {f: getattr(tr.state, f).numpy()[live] for f in ("kf_R", "kf_t", "kf_ts", "kf_vel")}
+    want = {f: a[live] for f, a in init["after"].items()}
+    g_got = got["kf_R"] @ np.array([0.0, 0.0, -1.0])
+    g_ref = want["kf_R"] @ np.array([0.0, 0.0, -1.0])
+    between = np.degrees(np.arccos(np.clip((g_got * g_ref).sum(-1), -1.0, 1.0)))
+    err_got, _ = chip_smoke.gravity_and_velocity(s, *(got[f] for f in want))
+    err_ref, _ = chip_smoke.gravity_and_velocity(s, *(want[f] for f in want))
+    print(f"init at frame {i - 1}: {len(live)} keyframes; port vs JAX body-frame "
+          f"gravity max {float(between.max())!r} median {float(np.median(between))!r} "
+          f"deg; against the truth median port {float(np.median(err_got))!r} JAX "
+          f"{float(np.median(err_ref))!r} deg")
+    assert between.max() < 0.1, between

@@ -23,9 +23,7 @@ Tolerances:
   initialises a new map.
 """
 
-import gc
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -47,14 +45,6 @@ from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera as TCamera
 from test_torch_slice import port_cfg
 
 torch.set_num_threads(2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    """Free the JAX executables this module compiled once it ends."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 N_FRAMES = 36

@@ -16,7 +16,6 @@ both sides; corrected keyframe poses within 1e-3 and landmarks within
 apply_correction on the same inputs within 1e-5.
 """
 
-import gc
 
 import jax
 import jax.numpy as jnp
@@ -36,13 +35,6 @@ from test_loop_closing import CAM, M, N_KF, _make_scenario
 torch.set_num_threads(2)
 
 TCAM = TCamera.pinhole(CAM.fx, CAM.fy, CAM.cx, CAM.cy)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 class JaxDraws:

@@ -10,8 +10,6 @@ Tolerances: integer and boolean fields exact; float fields within 1e-4
 within 1e-3 after 2 x 3 LM steps.
 """
 
-import gc
-import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -33,16 +31,6 @@ from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as tms
 from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera as TCamera
 
 torch.set_num_threads(2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    """Free the JAX executables this module compiled once it ends: each holds
-    hundreds of memory mappings, and an xdist worker that runs several
-    compile-heavy files can reach the per-process mapping limit."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 H, W, FX, B = 240, 352, 260.0, 0.2

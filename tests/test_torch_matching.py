@@ -10,8 +10,6 @@ inputs are built to tie a lot: descriptors drawn from a small pool with a
 few flipped bits.
 """
 
-import gc
-import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -21,16 +19,6 @@ from orb_slam3_vio_fixes_tpu.ops import matching as jm
 from orb_slam3_vio_fixes_tpu_torch.ops import matching as tm
 
 torch.set_num_threads(2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    """Free the JAX executables this module compiled once it ends: each holds
-    hundreds of memory mappings, and an xdist worker that runs several
-    compile-heavy files can reach the per-process mapping limit."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 POOL = np.random.default_rng(99).integers(0, 2**32, size=(64, 8),

@@ -6,8 +6,6 @@ closed forms; only operation order and fused multiply-adds differ, which
 moves results by a few ulps of O(1) values.
 """
 
-import gc
-import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -24,16 +22,6 @@ from orb_slam3_vio_fixes_tpu_torch.utils import lie as tlie
 from orb_slam3_vio_fixes_tpu_torch.utils import linalg as tlinalg
 
 torch.set_num_threads(2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    """Free the JAX executables this module compiled once it ends: each holds
-    hundreds of memory mappings, and an xdist worker that runs several
-    compile-heavy files can reach the per-process mapping limit."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -11,7 +11,6 @@ system); per-step costs within 1e-3 relative; essential edges exact (index
 lists) and within 1e-6 (measurements).
 """
 
-import gc
 
 import jax
 import jax.numpy as jnp
@@ -26,13 +25,6 @@ from orb_slam3_vio_fixes_tpu_torch.optim import pose_graph as tpg
 from test_pose_graph import _circle_gt, _drifted, _pose_err
 
 torch.set_num_threads(2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 def T(a):

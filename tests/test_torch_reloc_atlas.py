@@ -15,7 +15,6 @@ and exact elsewhere, leaving out the last keyframe and landmark slots,
 where the reference's pad writes race (ROADMAP queue 3); snapshots exact.
 """
 
-import gc
 
 import jax
 import jax.numpy as jnp
@@ -51,13 +50,6 @@ H, W, FX, BASELINE = 240, 352, 260.0, 0.2
 K_CAM = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1]], np.float32)
 JCAM = JCamera.pinhole(FX, FX, W / 2, H / 2)
 TCAM = TCamera.pinhole(FX, FX, W / 2, H / 2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 @pytest.fixture(scope="module")

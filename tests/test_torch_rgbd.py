@@ -13,9 +13,7 @@ Tolerances:
 - IMU_RGBD through SLAMSystem.track_rgbd: state OK and the IMU initialised.
 """
 
-import gc
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -44,14 +42,6 @@ torch.set_num_threads(2)
 
 N_FRAMES = 24
 BF = 260.0 * 0.1
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    """Free the JAX executables this module compiled once it ends."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 @pytest.fixture(scope="module")

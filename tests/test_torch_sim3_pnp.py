@@ -14,7 +14,6 @@ share): the hypotheses that get polished differ, so PnP is compared by
 outcome.
 """
 
-import gc
 
 import jax
 import jax.numpy as jnp
@@ -36,13 +35,6 @@ torch.set_num_threads(2)
 
 JCAM = JCamera.pinhole(300.0, 300.0, 160.0, 120.0)
 TCAM = TCamera.pinhole(300.0, 300.0, 160.0, 120.0)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 def T(a, dtype=None):

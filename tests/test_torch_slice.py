@@ -9,8 +9,6 @@ feature sets that differ in a few keypoints, see test_torch_frame); the
 port's 30-frame ATE < 0.015 m and scale drift < 2%, test_e2e_stereo's bar.
 """
 
-import gc
-import jax
 import numpy as np
 import pytest
 import torch
@@ -27,16 +25,6 @@ from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera as TCamera
 from test_e2e_stereo import small_cfg
 
 torch.set_num_threads(2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    """Free the JAX executables this module compiled once it ends: each holds
-    hundreds of memory mappings, and an xdist worker that runs several
-    compile-heavy files can reach the per-process mapping limit."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 N_CMP = 12

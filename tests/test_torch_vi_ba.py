@@ -11,9 +11,7 @@ final information within rtol 1e-3 of its largest entry; `marginalize`
 within 1e-3 of its largest entry (eigen pseudo-inverse in float32).
 """
 
-import gc
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,14 +28,6 @@ from test_vi_ba import (_inertial_factors, _landmarks_and_factors, _problem,
                         _simulate_states)
 
 torch.set_num_threads(2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    """Free the JAX executables this module compiled once it ends."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 TCAM = TCamera.pinhole(400.0, 400.0, 320.0, 240.0)

@@ -11,9 +11,7 @@ identical. Landmark row 0 is left out: the reference's compacted write-back
 reverts it through its pad slots, the port's does not.
 """
 
-import gc
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,14 +27,6 @@ from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera as TCamera
 from test_vi_global_ba import BF, CALIB, CAM, _build_map, _nonidentity_calib
 
 torch.set_num_threads(2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    """Free the JAX executables this module compiled once it ends."""
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 TCAM = TCamera.pinhole(400.0, 400.0, 320.0, 240.0)

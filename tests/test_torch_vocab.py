@@ -7,9 +7,7 @@ the same numpy k-medians); histograms, L1 scores and query scores within
 1e-6 (float32 sums in another order); query ids exact.
 """
 
-import gc
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,13 +21,6 @@ from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary as tvoc
 from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera
 
 torch.set_num_threads(2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _release_jax_executables():
-    yield
-    jax.clear_caches()
-    gc.collect()
 
 
 @pytest.fixture(scope="module")
