@@ -74,8 +74,11 @@ Phases, in order (any failure raises and the script exits non-zero):
      short blackout ends in a relocalisation inside the dead-reckoning
      window (centre within 5 cm), a long one sends the map to the Atlas, the
      new map initialises its IMU and merges through the VI merge BA (centre
-     within 10 cm); snapshots after the stash and the merge; K2 exact on
-     reloc_attempt and verify_cross_candidate masks;
+     within 10 cm; an inertial merge keeps only the Sim3's yaw and
+     translation once the map's IMU has had 5 s of data, and map B merges
+     0.55 s after its initialisation, so here the full Sim3 applies);
+     snapshots after the stash and the merge; K2 exact on reloc_attempt and
+     verify_cross_candidate masks;
  14. the facade: SLAMSystem(device="cuda") for STEREO, RGBD, IMU_STEREO and
      IMU_RGBD from a YAML file written here, 30-40 frames each through
      track_stereo / track_rgbd: state OK, the IMU initialised where there is
@@ -102,7 +105,23 @@ Phases, in order (any failure raises and the script exits non-zero):
      search mask of its post-init frames. Prints the runner's stage times
      and fps beside phase 14's direct IMU_STEREO loop, and the MAVLink
      layer's ms per frame.
-Each of phases 8-15 prints its K1/K2 launches and peak device memory.
+ 16. the monocular path: phase 5's 80 frames (left images) through the
+     port's MonocularTracker: state OK, >= 3 keyframes, the scale-aligned
+     ATE within the stated bound of the JAX package's, K1 once per frame on
+     a one-image (B = 1) atlas, K2 at least once per matcher call (the
+     two-view search, then two per tracked frame and six per keyframe
+     insert); K1 and K2 exact on this path's inputs, K2 on a
+     search_for_initialization mask;
+ 17. the monocular-inertial path: tests/test_e2e_mono_inertial.py's scene
+     at 752x480 (60 frames, 200 Hz IMU) through MonoInertialTracker: the IMU
+     initialised with a free scale, the metric ATE from the IMU chain's
+     first keyframe on within the stated bound of the JAX package's, the
+     Horn scale within 0.12 of 1, the same kernel checks as phase 16.
+Phase 14 also runs MONOCULAR (40 frames) and IMU_MONOCULAR (60) through
+track_monocular. Each of phases 8-17 prints its K1/K2 launches and peak
+device memory. The whole script runs in PyTorch's deterministic mode
+(utils/determinism.py, switched on before any CUDA work): one answer per
+input, so a gate passes or fails the same way on every run of one build.
 
 The last lines are one JSON object with the kernels, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -208,6 +227,34 @@ SI_ATLAS_LOST_TIME = 0.25
 SI_ATLAS_PLAN = dict(reloc_map=17, reloc_blank=2, reloc_view=12, atlas_map=23, lost_blank=8,
                      frames=65)
 
+# The monocular phases. Phase 16: the bench scene's left images (phase 5's
+# 80 frames) through MonocularTracker with the bench's tracker configuration.
+# Phase 17: tests/test_e2e_mono_inertial.py's scene generator (seed 11,
+# accel_amp 0.8, 700 sprites) at 752x480 with fx 458 and 1024 features, 60
+# frames, through MonoInertialTracker with that test's InertialConfig (IMU
+# init after 8 keyframes and 1.2 s, free scale) and a keyframe at least
+# every 6 frames, as there. The JAX numbers are the JAX package's trackers
+# on the same frames, measured once on a CPU with JAX 0.9.0 by
+# tests/test_torch_mono.py::test_jax_mono_reference_at_full_width and
+# tests/test_torch_mono_inertial.py::
+# test_jax_mono_inertial_reference_at_full_width: phase 16's scale-aligned
+# ATE (monocular maps have no scale), phase 17's metric ATE over the frames
+# from the IMU chain's first keyframe on (no scale alignment: the IMU must
+# have made the map metric), as in the JAX tests. Those runs ended OK: phase
+# 16 with 20 keyframes (Horn scale 9.80: the map's unit is the first pair's
+# median depth), phase 17 with the IMU initialised, 24 keyframes, Horn scale
+# 0.896 over 55 frames (scale-aligned ATE 0.0223 m). The facade's monocular
+# modes (scored alike): tests/test_torch_system.py::
+# test_jax_facade_reference_at_full_width.
+JAX_MONO_ATE_M = 0.021289207021509757
+MI_FRAMES = 60
+MI_ICFG = dict(frame_samples=16, kf_samples=256, init_min_kfs=8, init_min_time=1.2,
+               vi_window=6, max_local_lm=1024, fix_scale=False)
+JAX_MI_ATE_M = 0.11974048796600748
+MI_SCALE_TOL = 0.12         # |Horn scale - 1| (tests/test_e2e_mono_inertial.py)
+JAX_FACADE_MONO_ATE_M = 0.02601094404694476
+JAX_FACADE_MONO_INERTIAL_ATE_M = 0.052541329847834495
+
 # The facade: SLAMSystem from a YAML file written at run time (a rectified
 # 752x480 pin-hole pair with the bench's camera; the IMU noise block of
 # configs/EuRoC.yaml with the body frame on the left camera, as the
@@ -246,9 +293,12 @@ ORBextractor.nLevels: 8
 ORBextractor.iniThFAST: 20
 ORBextractor.minThFAST: 7
 """
-FACADE_FRAMES = {"STEREO": 40, "RGBD": 30, "IMU_STEREO": 36, "IMU_RGBD": 36}
+FACADE_FRAMES = {"STEREO": 40, "RGBD": 30, "IMU_STEREO": 36, "IMU_RGBD": 36,
+                 "MONOCULAR": 40, "IMU_MONOCULAR": 60}
 JAX_FACADE_ATE_M = {"STEREO": 0.005074487028276547, "RGBD": 0.004336191602072658,
-                    "IMU_STEREO": 0.006273376860191582, "IMU_RGBD": 0.00600935824044728}
+                    "IMU_STEREO": 0.006273376860191582, "IMU_RGBD": 0.00600935824044728,
+                    "MONOCULAR": JAX_FACADE_MONO_ATE_M,
+                    "IMU_MONOCULAR": JAX_FACADE_MONO_INERTIAL_ATE_M}
 
 # Phase 15 writes the facade's IMU_STEREO frames as a EuRoC directory whose
 # stamps start here (nanoseconds).
@@ -548,13 +598,17 @@ def capture_path_masks(seq, device) -> dict:
     return out
 
 
-def facade_scenario(mode: str, synthetic):
+def facade_scenario(mode: str, synthetic, n_frames=None):
     """(frames, ts, t_wc) of the facade phase for one sensor mode, from
     `synthetic` (the port's io/synthetic.py here; the JAX package's in the
     test that measures the JAX numbers): the bench's stereo or stereo-inertial
     scene, each frame (image or left image, right image or metric depth,
-    timestamp, IMU samples since the previous frame or None)."""
-    n = FACADE_FRAMES[mode]
+    timestamp, IMU samples since the previous frame or None). The monocular
+    modes take the left images of the STEREO and IMU_STEREO scenes."""
+    n = n_frames or FACADE_FRAMES[mode]
+    if mode in ("MONOCULAR", "IMU_MONOCULAR"):
+        frames, ts, t_wc = facade_scenario(mode[:-len("MONOCULAR")] + "STEREO", synthetic, n)
+        return [(left, None, t, imu) for left, _, t, imu in frames], ts, t_wc
     if mode in ("STEREO", "RGBD"):
         rng = np.random.default_rng(7)
         world = synthetic.make_world(rng, n_points=1400, extent=10.0,
@@ -588,20 +642,54 @@ def facade_scenario(mode: str, synthetic):
     return frames, s.ts, s.t_wc
 
 
-def track_facade(slam, frames):
+def track_facade(slam, frames, states=None):
     """Every frame through the facade's entry for its sensor; host seconds
-    per frame (synchronised when the facade runs on the card)."""
+    per frame (synchronised when the facade runs on the card), and each
+    frame's tracking state appended to `states` when given."""
     per_frame = []
     for a, b, ts, imu in frames:
         f0 = time.perf_counter()
         if slam.sensor.is_rgbd:
             slam.track_rgbd(a, b, ts, imu)
+        elif slam.sensor.is_monocular:
+            slam.track_monocular(a, ts, imu)
         else:
             slam.track_stereo(a, b, ts, imu)
         if slam.device.type == "cuda":
             sync()
         per_frame.append(time.perf_counter() - f0)
+        if states is not None:
+            states.append(slam.get_tracking_state())
     return per_frame
+
+
+def mono_scores(ts, t_wc, traj, t_from=-np.inf):
+    """(metric ATE, scale-aligned ATE, Horn scale, frames scored) of the
+    trajectory's frames from stamp `t_from` on, against the true centres."""
+    from orb_slam3_vio_fixes_tpu_torch.evaluation import ate
+
+    est = [x for x in traj if x[0] >= t_from]
+    C = np.array([-R.T @ t for _, R, t in est])
+    if not np.all(np.isfinite(C)):
+        raise RuntimeError("bad trajectory: non-finite poses")
+    est_ts = np.array([x[0] for x in est])
+    metric, _, n = ate.ate_rmse(ts, t_wc, est_ts, C)
+    aligned, scale, _ = ate.ate_rmse(ts, t_wc, est_ts, C, with_scale=True)
+    return metric, aligned, scale, n
+
+
+def facade_ate(mode: str, tr, ts, t_wc, n_frames) -> float:
+    """The facade's ATE of one sensor mode: metric over every frame; the
+    monocular map's after scale alignment; the monocular-inertial map's
+    metric over the frames from its IMU chain's first keyframe on."""
+    if mode == "MONOCULAR":
+        _, rmse, _, n = mono_scores(ts, t_wc, tr.trajectory)
+        if n != n_frames:
+            raise RuntimeError(f"ATE over {n} of {n_frames} frames")
+        return rmse
+    if mode == "IMU_MONOCULAR":
+        return mono_scores(ts, t_wc, tr.trajectory, tr.t_first_kf)[0]
+    return trajectory_ate(ts, t_wc, tr, n_frames)
 
 
 def make_inertial_sequence(n_frames: int = VI_FRAMES):
@@ -1466,7 +1554,8 @@ def si_atlas_path(vocab, device, card) -> dict:
         n_real = a + 1
         # Atlas: stash and merge
         atl = atlas_mod.Atlas(cfg.map, vocab, camera_of(seq),
-                              tracking.octave_inv_sigma2(cfg.orb, device), device=device)
+                              tracking.octave_inv_sigma2(cfg.orb, device),
+                              atlas_mod.AtlasConfig(inertial=True), device=device)
         closer, tr = build(atlas=atl)
         a, i_b = p["atlas_map"], p["atlas_map"] + p["lost_blank"]
         for i in range(a):
@@ -1518,8 +1607,9 @@ def si_atlas_path(vocab, device, card) -> dict:
 
 
 def facade_path(device, card) -> dict:
-    """Phase 14: SLAMSystem on the card for STEREO, RGBD, IMU_STEREO and
-    IMU_RGBD from a YAML file written here, each mode's launches counted;
+    """Phase 14: SLAMSystem on the card for STEREO, RGBD, IMU_STEREO,
+    IMU_RGBD, MONOCULAR and IMU_MONOCULAR from a YAML file written here,
+    each mode's launches counted;
     the final state and ATE checked, the Atlas saved and loaded back through
     the facade; then configs/EuRoC.yaml parsed by the port's own parser and
     rectified, and the rectifying remap on the card held against the CPU.
@@ -1544,15 +1634,19 @@ def facade_path(device, card) -> dict:
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
             slam = sysm.SLAMSystem(path, getattr(sysm.Sensor, mode))
-            per_frame = track_facade(slam, frames)
+            states = []
+            per_frame = track_facade(slam, frames, states)
             counts = kernels.launch_counts()
             tr = slam.tracker
-            rmse = trajectory_ate(ts, t_wc, tr, n)
+            rmse = facade_ate(mode, tr, ts, t_wc, n)
             jax_ate = JAX_FACADE_ATE_M[mode]
             bound = ATE_FACTOR * jax_ate + ATE_SLACK_M
             n_ins = tr._kf_seq
-            stereo = 0 if slam.sensor.is_rgbd else n
-            min_k2 = stereo + 2 * (n - 1) + 6 * n_ins
+            if slam.sensor.is_monocular:
+                min_k2 = mono_matcher_calls(states, n_ins)
+            else:
+                stereo = 0 if slam.sensor.is_rgbd else n
+                min_k2 = stereo + 2 * (n - 1) + 6 * n_ins
             snap = os.path.join(d, f"{mode}.npz")
             slam.save_atlas(snap)
             slam2 = sysm.SLAMSystem(path, getattr(sysm.Sensor, mode))
@@ -1584,8 +1678,8 @@ def facade_path(device, card) -> dict:
             by_mode[mode] = counts
             frame_s[mode] = per_frame
             del slam, slam2
-            if mode == "RGBD":
-                k1_rgbd(frames, device)
+            if mode in ("RGBD", "MONOCULAR"):
+                k1_one_image(f"facade {mode}", frames, device)
 
     # EuRoC's distorted pair: the port's parser, rectification maps, and the
     # remap of a rendered pair on the card against the CPU
@@ -1605,8 +1699,9 @@ def facade_path(device, card) -> dict:
     return by_mode, frame_s
 
 
-def k1_rgbd(frames, device) -> None:
-    """K1 on the RGB-D frame build's one-image (B = 1) atlases."""
+def k1_one_image(label, frames, device) -> None:
+    """K1 on the one-image (B = 1) atlases of the RGB-D and monocular frame
+    builds, first and last frame."""
     from orb_slam3_vio_fixes_tpu_torch.ops import fast
     from orb_slam3_vio_fixes_tpu_torch.ops import image as image_ops
 
@@ -1617,10 +1712,134 @@ def k1_rgbd(frames, device) -> None:
         got, ref = fast.fast_score_batch(x), fast.fast_score_plain(x)
         sync()
         n_bad = int((got != ref).sum())
-        log(f"[k1] rgbd frame {i}: shape={tuple(x.shape)} mismatches={n_bad} "
+        log(f"[k1] {label} frame {i}: shape={tuple(x.shape)} mismatches={n_bad} "
             f"nonzero={int((ref > 0).sum())}")
         if x.shape[0] != 1 or n_bad:
-            raise RuntimeError(f"K1 disagrees with its plain twin on the RGB-D frame {i}")
+            raise RuntimeError(f"K1 disagrees with its plain twin on the {label} frame {i}")
+
+
+def mono_matcher_calls(states, n_ins: int) -> int:
+    """The matcher calls a monocular tracker always makes, from its states
+    per frame: the two-view search on the initialising frame, two per frame
+    tracked after it (motion model, local map), six per keyframe insert."""
+    if "OK" not in states:
+        return 1
+    j = states.index("OK")
+    return 1 + 2 * (len(states) - 1 - j) + 6 * n_ins
+
+
+def make_mono_inertial_sequence(synthetic, n_frames: int = MI_FRAMES):
+    """tests/test_e2e_mono_inertial.py's scene generator at 752x480 with
+    fx 458 (`synthetic`: the port's io/synthetic.py, or the JAX package's in
+    the test that measures the JAX numbers)."""
+    rng = np.random.default_rng(11)
+    world = synthetic.make_world(rng, n_points=700, extent=7.0, depth_range=(2.5, 9.0))
+    seq = synthetic.make_stereo_inertial_sequence(
+        rng, n_frames=n_frames, h=480, w=752, fx=458.0, baseline=0.2, world=world,
+        imu_hz=200.0, accel_amp=0.8)
+    return seq._replace(imgs_l=quantize(seq.imgs_l), imgs_r=quantize(seq.imgs_r))
+
+
+def run_mono(tr, seq, states):
+    """Every frame's left image through the monocular or monocular-inertial
+    entry point (synchronised host seconds per frame); the tracking state
+    after each frame appended to `states`."""
+    per_frame = []
+    for i in range(seq.imgs_l.shape[0]):
+        f0 = time.perf_counter()
+        if hasattr(tr, "process_mono_inertial"):
+            imu = seq.imu[i - 1] if i > 0 else np.zeros((0, 7), np.float32)
+            tr.process_mono_inertial(seq.imgs_l[i], seq.ts[i], imu)
+        else:
+            tr.process_mono(seq.imgs_l[i], seq.ts[i])
+        sync()
+        per_frame.append(time.perf_counter() - f0)
+        states.append(tr.track_state)
+    return per_frame
+
+
+def mono_phase(label, tr, seq, device, card):
+    """Counted run of a monocular tracker over `seq`, the two-view search's
+    matcher inputs recorded; checks the state, keyframes, K1 (once per
+    frame, B = 1) and K2 launches, and K1 / K2 exact on this path's inputs.
+    Returns (launch counts, states)."""
+    from orb_slam3_vio_fixes_tpu_torch import kernels
+    from orb_slam3_vio_fixes_tpu_torch.frontend import mono_tracking
+    from orb_slam3_vio_fixes_tpu_torch.ops import matching
+
+    key = "search_for_initialization"
+    record, tagged, masks = matcher_recorder({key})
+    states = []
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(matching, "hamming_match", record), \
+            mock.patch.object(mono_tracking, key, tagged(key, getattr(mono_tracking, key))):
+        per_frame = run_mono(tr, seq, states)
+    sync()
+    counts = kernels.launch_counts()
+    n = len(states)
+    min_k2 = mono_matcher_calls(states, tr._kf_seq)
+    init_at = states.index("OK") if "OK" in states else None
+    log(f"[{label}] frames={n} state={tr.track_state} initialised_at_frame={init_at} "
+        f"keyframes={len(tr.kf_order)} keyframe_inserts={tr._kf_seq} launches={counts} "
+        f"min_matcher_calls={min_k2} peak_device_mib="
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} wall={time.perf_counter() - t0:.1f}s")
+    log(f"[timing] {card}: {label} {frame_stats(per_frame)}")
+    if tr.track_state != "OK" or len(tr.kf_order) < 3:
+        raise RuntimeError(f"{label}: final state {tr.track_state}, "
+                           f"{len(tr.kf_order)} keyframes")
+    check_launches(label, counts, n, min_k2)
+    frames = [(seq.imgs_l[i],) for i in range(n)]
+    k1_one_image(label, frames, device)
+    k2_on_masks(label, masks, (key,))
+    return counts
+
+
+def mono_path(seq, device, card) -> dict:
+    """Phase 16: the bench scene's left images through MonocularTracker
+    (K1 at B = 1, K2 in the two-view search and every matcher after it);
+    the scale-aligned ATE against the JAX package's."""
+    from orb_slam3_vio_fixes_tpu_torch.frontend.mono_tracking import MonocularTracker
+
+    tr = MonocularTracker(camera_of(seq), tracker_config(seq), device=device)
+    counts = mono_phase("mono", tr, seq, device, card)
+    _, rmse, scale, n = mono_scores(seq.ts, seq.t_wc, tr.trajectory)
+    bound = ATE_FACTOR * JAX_MONO_ATE_M + ATE_SLACK_M
+    log(f"[mono] ate_rmse_m(scale-aligned)={rmse!r} horn_scale={scale!r} frames_scored={n} "
+        f"bound_m={bound!r} (jax {JAX_MONO_ATE_M!r})")
+    if n != seq.imgs_l.shape[0] or not rmse <= bound:
+        raise RuntimeError(f"mono ATE {rmse} m over {n} frames, bound {bound} m")
+    return counts
+
+
+def mono_inertial_path(device, card) -> dict:
+    """Phase 17: tests/test_e2e_mono_inertial.py's scene at 752x480 through
+    MonoInertialTracker: the IMU initialised with a free scale, the metric
+    ATE from the IMU chain's first keyframe on against the JAX package's,
+    the Horn scale within MI_SCALE_TOL of 1."""
+    from orb_slam3_vio_fixes_tpu_torch.frontend import inertial_tracking as it
+    from orb_slam3_vio_fixes_tpu_torch.imu import preintegration as pre
+    from orb_slam3_vio_fixes_tpu_torch.io import synthetic
+
+    seq = make_mono_inertial_sequence(synthetic)
+    calib = pre.ImuCalib.make(1.7e-4, 2e-3, 1.9e-5, 3e-3, seq.imu_hz, device=device)
+    tr = it.MonoInertialTracker(camera_of(seq), calib,
+                                tracker_config(seq, max_frames_between_kf=6),
+                                it.InertialConfig(**MI_ICFG), device=device)
+    counts = mono_phase("mono_inertial", tr, seq, device, card)
+    metric, aligned, scale, n = mono_scores(seq.ts, seq.t_wc, tr.trajectory, tr.t_first_kf)
+    bound = ATE_FACTOR * JAX_MI_ATE_M + ATE_SLACK_M
+    log(f"[mono_inertial] imu_ready={tr.imu_ready} window_vi_bas={tr.n_vi_ba} "
+        f"ate_rmse_m(metric, from the first keyframe)={metric!r} scale-aligned={aligned!r} "
+        f"horn_scale={scale!r} frames_scored={n} bound_m={bound!r} (jax {JAX_MI_ATE_M!r})")
+    if not tr.imu_ready:
+        raise RuntimeError("mono_inertial: the IMU never initialised")
+    if n < 10 or not metric <= bound or not abs(scale - 1.0) < MI_SCALE_TOL:
+        raise RuntimeError(f"mono_inertial ATE {metric} m over {n} frames (bound {bound} m), "
+                           f"scale {scale}")
+    return counts
 
 
 def write_euroc_layout(root, frames, ts, t0_ns: int = APP_T0_NS) -> dict:
@@ -1844,6 +2063,9 @@ def app_path(device, card, facade_frame_s) -> dict:
 
 def main() -> int:
     card = card_facts()
+    from orb_slam3_vio_fixes_tpu_torch.utils import determinism
+
+    determinism.enable()            # before any CUDA work
     device = torch.device("cuda")
     log(f"[card] {card}")
 
@@ -1897,6 +2119,8 @@ def main() -> int:
     for mode, counts in facade_counts.items():
         by_path[f"facade_{mode.lower()}"] = counts
     phase("app", app_path, device, card, facade_frame_s)
+    phase("mono", mono_path, seq, device, card)
+    phase("mono_inertial", mono_inertial_path, device, card)
     log(f"[phase] seconds={phase_s}")
     counts = by_path["stereo"]
 

@@ -9,7 +9,8 @@ runner covers all dataset/sensor combinations; the thin modules in
 
 `run_sequence` and `run_multisession` run on the card unless the caller
 passes `device="cpu"`, and raise when CUDA is absent (through the facade);
-the command line has no device option.
+the command line has no device option. Both switch PyTorch to deterministic
+algorithms first (`utils/determinism.py`).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from orb_slam3_vio_fixes_tpu_torch.runtime import PipelineRunner
 from orb_slam3_vio_fixes_tpu_torch.sensors import Sensor
 from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary as voc
 from orb_slam3_vio_fixes_tpu_torch.system import SLAMSystem, _device
+from orb_slam3_vio_fixes_tpu_torch.utils import determinism
 from orb_slam3_vio_fixes_tpu_torch.vio import (
     GPSCoord, LoopbackTransport, MAVLinkInterface, TxMode, UARTTransfer)
 
@@ -90,6 +92,7 @@ def run_sequence(
     tracker_cfg=None,
     device="cuda",
 ) -> dict:
+    determinism.enable()        # before any CUDA work: the cuBLAS workspace
     dev = _device(device)
     sensor = Sensor[sensor_name]
     seq = _load(dataset, sensor, seq_dir, timestamps, associations)
@@ -149,6 +152,7 @@ def run_multisession(
     Requires a vocabulary; if none is given, a small one is trained on the
     first sequence's first frame (self-contained default for experiments).
     """
+    determinism.enable()        # before any CUDA work: the cuBLAS workspace
     dev = _device(device)
     sensor = Sensor[sensor_name]
     if dataset not in ("euroc", "tumvi", "kitti"):

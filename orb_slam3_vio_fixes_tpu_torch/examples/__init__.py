@@ -4,6 +4,5 @@ directory), run as modules from the repository root, e.g.
     python -m orb_slam3_vio_fixes_tpu_torch.examples.stereo_inertial_vio \
         settings.yaml seq_dir out.txt --vio-config cfg.json
 
-The monocular and fisheye apps (euroc_mono, tum_mono, tum_vi_stereo_inertial)
-wait for the monocular / KannalaBrandt8 slice.
+The fisheye app (tum_vi_stereo_inertial) waits for the KannalaBrandt8 slice.
 """

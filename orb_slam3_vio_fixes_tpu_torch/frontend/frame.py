@@ -1,6 +1,6 @@
-"""Stereo and RGB-D frame construction (port of
+"""Stereo, RGB-D and monocular frame construction (port of
 orb_slam3_vio_fixes_tpu/frontend/frame.py: FrameData, sad_subpixel,
-build_stereo_frame_impl, build_rgbd_frame)."""
+build_stereo_frame_impl, build_rgbd_frame, build_mono_frame)."""
 
 from __future__ import annotations
 
@@ -117,14 +117,27 @@ def build_stereo_frame_impl(img_l: torch.Tensor, img_r: torch.Tensor,
                      desc=fl.desc, valid=fl.valid, ts=ts)
 
 
+def _extract_one(img: torch.Tensor, cfg: orb.ORBConfig) -> orb.Features:
+    """ORB on one image: a B = 1 atlas through K1."""
+    f = orb.extract_batch(to_f32(img)[None], cfg)
+    return orb.Features(*(a[0] for a in f))
+
+
+def build_mono_frame(img: torch.Tensor, ts: torch.Tensor, cfg: orb.ORBConfig) -> FrameData:
+    """Monocular: ORB on the one image; no right coordinate, no depth."""
+    f = _extract_one(img, cfg)
+    neg = torch.full_like(f.angle, -1.0)
+    return FrameData(uv=f.uv, ur=neg, depth=neg.clone(), octave=f.octave, angle=f.angle,
+                     desc=f.desc, valid=f.valid, ts=ts)
+
+
 def build_rgbd_frame(img: torch.Tensor, depth_img: torch.Tensor, ts: torch.Tensor,
                      cam: Camera, bf: float, cfg: orb.ORBConfig) -> FrameData:
     """RGB-D: ORB on the one image (a B = 1 atlas through K1), the depth map
     sampled at each keypoint (coordinates truncated to int and clipped) and
     a synthetic right coordinate ur = u - bf / z where z > 0. `depth_img`
     is metric float32, never quantised."""
-    f = orb.extract_batch(to_f32(img)[None], cfg)
-    f = orb.Features(*(a[0] for a in f))
+    f = _extract_one(img, cfg)
     H, W = depth_img.shape
     xi = f.uv[:, 0].to(torch.int32).clamp(0, W - 1).to(torch.int64)
     yi = f.uv[:, 1].to(torch.int32).clamp(0, H - 1).to(torch.int64)

@@ -21,8 +21,8 @@ in its maps: a relocalisation inside the dead-reckoning window, a new map
 in the Atlas when the window runs out, loop detection once the IMU is
 initialised (the inertial closer's 4-DoF graph, then the full-map VI BA),
 and the MergeInertialBA analogue after a map merge. `process_rgbd_inertial`
-is the IMU_RGBD entry. Waiting for later slices: the landmark-sharded
-full-map BA (`mesh`) and the monocular-inertial tracker.
+is the IMU_RGBD entry; `MonoInertialTracker` the IMU_MONOCULAR one. Waiting
+for a later slice: the landmark-sharded full-map BA (`mesh`).
 """
 
 from __future__ import annotations
@@ -33,6 +33,8 @@ import numpy as np
 import torch
 
 from orb_slam3_vio_fixes_tpu_torch.frontend import tracking as trk
+from orb_slam3_vio_fixes_tpu_torch.frontend.frame import build_mono_frame
+from orb_slam3_vio_fixes_tpu_torch.frontend.mono_tracking import MonoInit, mono_config
 from orb_slam3_vio_fixes_tpu_torch.imu import preintegration as pre
 from orb_slam3_vio_fixes_tpu_torch.optim import inertial_init as ii
 from orb_slam3_vio_fixes_tpu_torch.optim import vi_ba
@@ -46,6 +48,12 @@ from orb_slam3_vio_fixes_tpu_torch.utils.linalg import compact_indices
 # (see optim/vi_ba.py), both batched over leading dimensions.
 body_from_cam = vi_ba.body_from_cam
 cam_from_body = vi_ba.cam_from_body
+
+
+# Seconds of IMU data after the initialisation before the map's gravity
+# direction is trusted over a merge's roll and pitch (the reference's first
+# inertial BA refinement, VIBA1, runs 5 s after the initialisation).
+GRAVITY_SETTLE_S = 5.0
 
 
 class InertialConfig(NamedTuple):
@@ -252,6 +260,7 @@ class StereoInertialTracker(trk.StereoTracker):
         self.kf_imu_buf = []        # samples since the last keyframe (host rows)
         self.kf_windows = {}        # kf_id -> (S, 7) host window from the previous KF
         self.t_first_kf = None
+        self.t_imu_init = None      # timestamp of the IMU initialisation's keyframe
         self.n_vi_ba = 0
         self.velocity_log = []
         self._pose_dev = None       # pose of the last packed-path frame
@@ -268,6 +277,19 @@ class StereoInertialTracker(trk.StereoTracker):
         # no place recognition on a pre-init (non-metric, gravity-unaligned)
         # inertial map
         return self.imu_ready
+
+    def _gravity_aligned(self) -> bool:
+        """The map's roll and pitch can be trusted over a merge's Sim3 once its
+        IMU has had GRAVITY_SETTLE_S of data since the initialisation (the
+        reference forces yaw-only merges after its first inertial BA
+        refinement, which runs 5 s after the IMU initialisation): right
+        after a short initialisation the map's gravity can be degrees off
+        (4.6 and 6.6 degrees for the two maps of chip_smoke.py's phase 13,
+        11 degrees apart, which a yaw-only merge would keep)."""
+        if not self.imu_ready or self.t_imu_init is None:
+            return False
+        t_kf = float(self.state.kf_ts[self.kf_order[-1]])
+        return t_kf - self.t_imu_init >= GRAVITY_SETTLE_S
 
     def _local_search_th(self) -> float:
         """The healthy states search at 1.0 whatever the base (RGB-D sets
@@ -514,6 +536,7 @@ class StereoInertialTracker(trk.StereoTracker):
         self.kf_imu_buf = []
         self.kf_windows = {}
         self.t_first_kf = None
+        self.t_imu_init = None
         self._lost_since = None
 
     def _reset_active_map_bad_imu(self):
@@ -720,7 +743,9 @@ class StereoInertialTracker(trk.StereoTracker):
         idx_i_d, pvalid_d = self._upload(idx_i), self._upload(pvalid)
         R_wg = ii.gravity_bootstrap(R_wb[idx_i_d], pres.dV, pvalid_d)
         # velocities by finite differences
-        dts = np.maximum(np.diff(st.kf_ts[:K].cpu().numpy()), 1e-3)
+        kf_ts = st.kf_ts[:K].cpu().numpy()
+        self.t_imu_init = float(kf_ts[-1])
+        dts = np.maximum(np.diff(kf_ts), 1e-3)
         p_np = p_wb.cpu().numpy()
         v0 = np.zeros((K, 3), np.float32)
         v0[:-1] = (p_np[1:] - p_np[:-1]) / dts[:, None]
@@ -785,9 +810,46 @@ class StereoInertialTracker(trk.StereoTracker):
         self._rebase_on(kf_last)
 
 
-class MonoInertialTracker(StereoInertialTracker):
-    """The monocular-inertial tracker (IMU_MONOCULAR) waits for the
-    monocular slice."""
+class MonoInertialTracker(MonoInit, StereoInertialTracker):
+    """Monocular-inertial SLAM (IMU_MONOCULAR sensor mode), sync mode: the
+    two-view initialisation and the monocular keyframe rule (`MonoInit`),
+    then the visual-inertial loop of StereoInertialTracker, whose IMU
+    initialisation estimates the scale (`fix_scale=False`) and brings the
+    map to metric. The motion model keeps the narrow (7, 14) px radii: the
+    IMU prediction centres the window well, and a wide first window on
+    repeated texture admits aliased matches that bias the scale."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("the monocular-inertial tracker is not ported yet")
+    def __init__(self, cam: Camera, calib: pre.ImuCalib,
+                 cfg: trk.TrackerConfig = trk.TrackerConfig(),
+                 icfg: InertialConfig = InertialConfig(fix_scale=False, init_min_kfs=6,
+                                                       init_min_time=2.0),
+                 *, device, loop_closer=None, relocalizer=None, atlas=None,
+                 init_window: float = 100.0):
+        if icfg.fix_scale:
+            raise ValueError("the monocular-inertial tracker estimates the scale: "
+                             "InertialConfig(fix_scale=False)")
+        super().__init__(cam, 0.0, calib, mono_config(cfg), icfg, device=device,
+                         loop_closer=loop_closer, relocalizer=relocalizer, atlas=atlas)
+        self._mono_setup(init_window)
+        self.match_radius = (7.0, 14.0)
+
+    def process_mono_inertial(self, img, ts: float, imu_np):
+        """imu_np: (n, 7) float32 [acc (3), gyro (3), dt] samples since the
+        previous frame."""
+        frame = build_mono_frame(self._upload_image(img), self._ts(ts), self.cfg.orb)
+        return self._track_inertial(frame, ts, imu_np)
+
+    def _initialize(self, frame) -> bool:
+        prev_ref = self.ref_frame
+        ok = super()._initialize(frame)
+        if ok:
+            # the IMU window joining the two initial keyframes (buffered
+            # since the reference frame was chosen)
+            self.kf_windows[1] = self._pad_kf_imu(self.kf_imu_buf)
+        elif self.ref_frame is not prev_ref:
+            self.kf_imu_buf = []        # a new reference: the window restarts
+        return ok
+
+    def _reset_active_map_bad_imu(self):
+        super()._reset_active_map_bad_imu()
+        self.ref_frame = None

@@ -27,7 +27,6 @@ from orb_slam3_vio_fixes_tpu_torch.optim import global_ba as gba_mod
 from orb_slam3_vio_fixes_tpu_torch.optim import pose_graph as pg
 from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
 from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary as voc
-from orb_slam3_vio_fixes_tpu_torch.utils import lie
 from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera, project, unproject
 
 
@@ -304,24 +303,12 @@ class LoopCloser:
         """Inertial maps: keep only the yaw of the measured loop transform's
         discrepancy from the odometric relative pose (roll and pitch are
         observable through gravity)."""
-        f64 = np.float64
-        R_m, t_m = sim.R.cpu().numpy().astype(f64), sim.t.cpu().numpy().astype(f64)
-        R_cur = state.kf_R[kf_id].cpu().numpy().astype(f64)
-        R_cand = state.kf_R[cand].cpu().numpy().astype(f64)
-        t_cur = state.kf_t[kf_id].cpu().numpy().astype(f64)
-        t_cand = state.kf_t[cand].cpu().numpy().astype(f64)
-        R_o = R_cur @ R_cand.T
-        t_o = t_cur - R_o @ t_cand
-        R_e = R_o.T @ R_m
-        t_e = R_o.T @ (t_m - t_o)
-        R_ew = R_cand.T @ R_e @ R_cand
-        w = lie.so3_log(torch.as_tensor(R_ew, dtype=torch.float32)).numpy().astype(f64)
-        w[:2] = 0.0
-        R_ew = lie.so3_exp(torch.as_tensor(w, dtype=torch.float32)).numpy().astype(f64)
-        R_e = R_cand @ R_ew @ R_cand.T
+        pose = [x.cpu().numpy() for x in (sim.R, sim.t, state.kf_R[kf_id], state.kf_t[kf_id],
+                                          state.kf_R[cand], state.kf_t[cand])]
+        R, t = sim3_ops.yaw_only(*pose)
         dev = self.device
-        return (torch.as_tensor(R_o @ R_e, dtype=torch.float32, device=dev),
-                torch.as_tensor(R_o @ t_e + t_o, dtype=torch.float32, device=dev),
+        return (torch.as_tensor(R, dtype=torch.float32, device=dev),
+                torch.as_tensor(t, dtype=torch.float32, device=dev),
                 torch.ones((), device=dev))
 
     def _correct(self, state: ms.MapState, kf_id: int, cand: int,

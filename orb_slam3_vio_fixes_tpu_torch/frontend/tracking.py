@@ -35,7 +35,8 @@ from orb_slam3_vio_fixes_tpu_torch.optim import ba_core
 from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
 from orb_slam3_vio_fixes_tpu_torch.utils import lie
 from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera, f32, in_image, project, unproject
-from orb_slam3_vio_fixes_tpu_torch.utils.linalg import compact_indices, topk_stable
+from orb_slam3_vio_fixes_tpu_torch.utils.linalg import (compact_indices, index_add_rows,
+                                                        topk_stable)
 
 
 class TrackerConfig(NamedTuple):
@@ -367,8 +368,8 @@ def local_ba_impl(state, adj_kfs, fixed_kfs, cam: Camera, bf: float,
     factors = factors._replace(lm_idx=lm_local.clamp(0, lm_budget - 1),
                                valid=factors.valid & got_slot)
     used_sub = used[sub_idx] & sub_ok
-    n_obs_local = torch.zeros(lm_budget, dtype=torch.int64, device=dev).index_add_(
-        0, factors.lm_idx, factors.valid.to(torch.int64))
+    n_obs_local = index_add_rows(torch.zeros(lm_budget, dtype=torch.int64, device=dev),
+                                 factors.lm_idx, factors.valid.to(torch.int64))
     problem = ba_core.BAProblem(
         R=state.kf_R[safe_w], t=state.kf_t[safe_w], pose_fixed=fixed,
         lm=state.lm_pos[sub_idx], lm_valid=state.lm_valid[sub_idx] & used_sub,
@@ -825,6 +826,12 @@ class StereoTracker:
     def _on_culled(self, cull):
         """Subclass bookkeeping, called before the keyframes are excised."""
 
+    def _gravity_aligned(self) -> bool:
+        """Subclass report: the active map's roll and pitch are fixed by
+        gravity well enough to override a merge's (an inertial map whose
+        gravity has settled after its IMU initialisation)."""
+        return False
+
     def _loop_enabled(self) -> bool:
         """Subclass gate for place recognition."""
         return True
@@ -881,7 +888,8 @@ class StereoTracker:
         self._refresh_ref_pose(kf_id, (counts[2:11].reshape(3, 3).astype(np.float64),
                                        counts[11:14].astype(np.float64)))
         if self.atlas is not None and self.atlas.stored:
-            res = self.atlas.try_merge(self.state, kf_id, self.n_kf, self.n_lm)
+            res = self.atlas.try_merge(self.state, kf_id, self.n_kf, self.n_lm,
+                                       gravity_aligned=self._gravity_aligned())
             if res is not None:
                 kf_id = self._adopt_merge(res, kf_id)
                 self.ref_inliers = max(int((self.state.kf_obs[kf_id] >= 0).sum()), 1)

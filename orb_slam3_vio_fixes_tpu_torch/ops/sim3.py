@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from orb_slam3_vio_fixes_tpu_torch.utils import lie
@@ -48,6 +49,28 @@ class Sim3Result(NamedTuple):
     s: torch.Tensor
     inliers: torch.Tensor   # (N,) bool
     n_inliers: torch.Tensor
+
+
+def yaw_only(R_m, t_m, R_cur, t_cur, R_cand, t_cand):
+    """Clamp a measured relative pose between two gravity-aligned frames to
+    yaw: the discrepancy between (R_m, t_m), which maps candidate-camera
+    coordinates into current-camera coordinates, and the relative pose of
+    the two keyframes' poses (R_cur, t_cur), (R_cand, t_cand), is taken into
+    the world frame, its roll and pitch are zeroed (the IMU fixes them),
+    and the pose is composed again; the translation in the candidate's
+    camera frame is kept. Host float64 arrays in and out: (R, t)."""
+    f64 = np.float64
+    R_m, t_m, R_cur, t_cur, R_cand, t_cand = (
+        np.asarray(x, f64) for x in (R_m, t_m, R_cur, t_cur, R_cand, t_cand))
+    R_o = R_cur @ R_cand.T
+    t_o = t_cur - R_o @ t_cand
+    R_e = R_o.T @ R_m
+    t_e = R_o.T @ (t_m - t_o)
+    R_ew = R_cand.T @ R_e @ R_cand
+    w = lie.so3_log(torch.as_tensor(R_ew, dtype=torch.float32)).numpy().astype(f64)
+    w[:2] = 0.0
+    R_ew = lie.so3_exp(torch.as_tensor(w, dtype=torch.float32)).numpy().astype(f64)
+    return R_o @ (R_cand @ R_ew @ R_cand.T), R_o @ t_e + t_o
 
 
 def sample(gen: torch.Generator, valid: torch.Tensor, n_hyp: int,

@@ -26,7 +26,7 @@ import torch
 
 from orb_slam3_vio_fixes_tpu_torch.utils import lie
 from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera, project, project_jac
-from orb_slam3_vio_fixes_tpu_torch.utils.linalg import inv3, inv6, solve6
+from orb_slam3_vio_fixes_tpu_torch.utils.linalg import index_add_rows, inv3, inv6, solve6
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -183,8 +183,8 @@ def _assemble_and_solve_motion(problem: BAProblem, inlier, lam, cfg: LMConfig):
     bp_f = -(wJp.transpose(1, 2) @ err[..., None])[..., 0]
     pidx = problem.factors.pose_idx
     dev = err.device
-    Hpp = torch.zeros((P, 6, 6), device=dev).index_add_(0, pidx, Hpp_f)
-    bp = torch.zeros((P, 6), device=dev).index_add_(0, pidx, bp_f)
+    Hpp = index_add_rows(torch.zeros((P, 6, 6), device=dev), pidx, Hpp_f)
+    bp = index_add_rows(torch.zeros((P, 6), device=dev), pidx, bp_f)
     eye6 = torch.eye(6, device=dev)
     Hd = Hpp + lam * Hpp * eye6 + 1e-8 * eye6
     free = ~problem.pose_fixed
@@ -325,12 +325,14 @@ def _factor_blocks(problem: BAProblem, inlier, cfg: LMConfig):
     wJl = w[:, None, None] * Jl
     pidx, lidx = problem.factors.pose_idx, problem.factors.lm_idx
     dev = err.device
-    Hpp = torch.zeros((P, 6, 6), device=dev).index_add_(0, pidx, wJp.transpose(1, 2) @ Jp)
-    Hll = torch.zeros((L, 3, 3), device=dev).index_add_(0, lidx, wJl.transpose(1, 2) @ Jl)
-    bp = torch.zeros((P, 6), device=dev).index_add_(
-        0, pidx, -(wJp.transpose(1, 2) @ err[..., None])[..., 0])
-    bl = torch.zeros((L, 3), device=dev).index_add_(
-        0, lidx, -(wJl.transpose(1, 2) @ err[..., None])[..., 0])
+    Hpp = index_add_rows(torch.zeros((P, 6, 6), device=dev), pidx,
+                         wJp.transpose(1, 2) @ Jp)
+    Hll = index_add_rows(torch.zeros((L, 3, 3), device=dev), lidx,
+                         wJl.transpose(1, 2) @ Jl)
+    bp = index_add_rows(torch.zeros((P, 6), device=dev), pidx,
+                        -(wJp.transpose(1, 2) @ err[..., None])[..., 0])
+    bl = index_add_rows(torch.zeros((L, 3), device=dev), lidx,
+                        -(wJl.transpose(1, 2) @ err[..., None])[..., 0])
     return wJp.transpose(1, 2) @ Jl, Hpp, Hll, bp, bl, rho
 
 
@@ -351,16 +353,16 @@ def schur_cg_solve(Hpl_f, Hpp_d, Hll_inv, bp, bl, pidx, lidx, free,
     Hlp_f = Hpl_f.transpose(1, 2)
 
     def hpl_hinv_hplT(v):
-        y = torch.zeros((L, 3), device=dev).index_add_(0, lidx, _mv(Hlp_f, v[pidx]))
+        y = index_add_rows(torch.zeros((L, 3), device=dev), lidx, _mv(Hlp_f, v[pidx]))
         q = _mv(Hpl_f, _mv(Hll_inv, y)[lidx])
-        return torch.zeros((Pn, 6), device=dev).index_add_(0, pidx, q)
+        return index_add_rows(torch.zeros((Pn, 6), device=dev), pidx, q)
 
     def matvec(v):
         v = torch.where(free[:, None], v, zero)
         return torch.where(free[:, None], _mv(Hpp_d, v) - hpl_hinv_hplT(v), zero)
 
     q0 = _mv(Hpl_f, _mv(Hll_inv, bl)[lidx])
-    rhs = bp - torch.zeros((Pn, 6), device=dev).index_add_(0, pidx, q0)
+    rhs = bp - index_add_rows(torch.zeros((Pn, 6), device=dev), pidx, q0)
     rhs = torch.where(free[:, None], rhs, zero)
     diag_ok = (Hpp_d.abs().sum((-1, -2)) > 1e-9) & free
     Minv = inv6(torch.where(diag_ok[:, None, None], Hpp_d, torch.eye(6, device=dev)))
@@ -387,8 +389,8 @@ def schur_cg_solve(Hpl_f, Hpp_d, Hll_inv, bp, bl, pidx, lidx, free,
 def backsub_landmarks(Hpl_f, Hll_inv, bl, dx_pose, pidx, lidx, lm_dead):
     """dl = Hll^-1 (bl - Hpl^T dx), factor-wise."""
     L = Hll_inv.shape[0]
-    y = torch.zeros((L, 3), device=bl.device).index_add_(
-        0, lidx, _mv(Hpl_f.transpose(1, 2), dx_pose[pidx]))
+    y = index_add_rows(torch.zeros((L, 3), device=bl.device), lidx,
+                       _mv(Hpl_f.transpose(1, 2), dx_pose[pidx]))
     dlm = _mv(Hll_inv, bl - y)
     return torch.where(lm_dead[:, None], torch.zeros((), device=bl.device), dlm)
 

@@ -29,7 +29,7 @@ from orb_slam3_vio_fixes_tpu_torch.imu import preintegration as pre
 from orb_slam3_vio_fixes_tpu_torch.optim.inertial_init import eig_fn, information_from_cov
 from orb_slam3_vio_fixes_tpu_torch.utils import lie
 from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera, project, project_jac
-from orb_slam3_vio_fixes_tpu_torch.utils.linalg import inv3
+from orb_slam3_vio_fixes_tpu_torch.utils.linalg import index_add_rows, inv3
 
 D = 15  # DoF per state
 
@@ -408,12 +408,12 @@ class _Solver:
         Js_f = Js_f * (~st.fixed[si])[:, None, None]
         Jl_f = Jl_f * (~p.lm_fixed[li])[:, None, None]
 
-        H = torch.zeros((W * W, D, D), device=dev).index_add_(
-            0, self.pair, outer_w(Js_f, Js_f, w_f))
-        b = torch.zeros((W, D), device=dev).index_add_(0, si, grad_w(Js_f, r_f, w_f))
-        Hll = torch.zeros((L, 3, 3), device=dev).index_add_(
-            0, li, outer_w(Jl_f, Jl_f, w_f))
-        bl = torch.zeros((L, 3), device=dev).index_add_(0, li, grad_w(Jl_f, r_f, w_f))
+        H = index_add_rows(torch.zeros((W * W, D, D), device=dev), self.pair,
+                           outer_w(Js_f, Js_f, w_f))
+        b = index_add_rows(torch.zeros((W, D), device=dev), si, grad_w(Js_f, r_f, w_f))
+        Hll = index_add_rows(torch.zeros((L, 3, 3), device=dev), li,
+                             outer_w(Jl_f, Jl_f, w_f))
+        bl = index_add_rows(torch.zeros((L, 3), device=dev), li, grad_w(Jl_f, r_f, w_f))
 
         r_p, J = inertial_jacobians(*self._inertial_args(states))
         r_pw = _bmv(self.sqrt_in, r_p)
@@ -478,7 +478,7 @@ class _Solver:
         eye3 = torch.eye(3, device=dev)
         act = self.lm_act
         Hll_inv = inv3(Hll + eye3 * 1e-6 + (~act)[:, None, None] * eye3) * act[:, None, None]
-        A = torch.zeros((W * L, D, 3), device=dev).index_add_(0, self.wl, Hpl_f)
+        A = index_add_rows(torch.zeros((W * L, D, 3), device=dev), self.wl, Hpl_f)
         A = A.reshape(W, L, D, 3)
         B = torch.einsum("wlab,lbc->wlac", A, Hll_inv)
         Hd = (H - torch.einsum("wlac,vlec->wave", B, A)).reshape(W * D, W * D)

@@ -19,7 +19,7 @@ from orb_slam3_vio_fixes_tpu_torch.imu import preintegration as pre
 from orb_slam3_vio_fixes_tpu_torch.optim import vi_ba
 from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
 from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera
-from orb_slam3_vio_fixes_tpu_torch.utils.linalg import compact_indices, inv3
+from orb_slam3_vio_fixes_tpu_torch.utils.linalg import compact_indices, index_add_rows, inv3
 
 D = vi_ba.D
 
@@ -76,13 +76,15 @@ def _reproj_blocks(R_wb, p_wb, lm, factors: vi_ba.VIReprojFactors, cam: Camera, 
     Jl = torch.where(act[:, None, None], Jl, zero)
     r0 = torch.where(act[:, None], r0, zero)
     wJp, wJl = _wJ(Jp, w), _wJ(Jl, w)
-    Hpp = torch.zeros((K, 6, 6), device=dev).index_add_(0, pidx, wJp.transpose(1, 2) @ Jp)
-    Hll = torch.zeros((L, 3, 3), device=dev).index_add_(0, lidx, wJl.transpose(1, 2) @ Jl)
+    Hpp = index_add_rows(torch.zeros((K, 6, 6), device=dev), pidx,
+                         wJp.transpose(1, 2) @ Jp)
+    Hll = index_add_rows(torch.zeros((L, 3, 3), device=dev), lidx,
+                         wJl.transpose(1, 2) @ Jl)
     Hpl_f = wJp.transpose(1, 2) @ Jl
-    bp = torch.zeros((K, 6), device=dev).index_add_(
-        0, pidx, -(wJp.transpose(1, 2) @ r0[..., None])[..., 0])
-    bl = torch.zeros((L, 3), device=dev).index_add_(
-        0, lidx, -(wJl.transpose(1, 2) @ r0[..., None])[..., 0])
+    bp = index_add_rows(torch.zeros((K, 6), device=dev), pidx,
+                        -(wJp.transpose(1, 2) @ r0[..., None])[..., 0])
+    bl = index_add_rows(torch.zeros((L, 3), device=dev), lidx,
+                        -(wJl.transpose(1, 2) @ r0[..., None])[..., 0])
     return Hpl_f, Hpp, Hll, bp, bl, chi2
 
 
@@ -156,10 +158,10 @@ def _vi_gba_solve(x, factors: vi_ba.VIReprojFactors, inertial: vi_ba.VIInertialF
                               lm_fixed, inl, cfg)[-1]
 
     def scatter6(q):
-        return torch.zeros((K, 6), device=dev).index_add_(0, pose_idx, q)
+        return index_add_rows(torch.zeros((K, 6), device=dev), pose_idx, q)
 
     def scatterL(u):
-        return torch.zeros((L, 3), device=dev).index_add_(0, lm_idx, u)
+        return index_add_rows(torch.zeros((L, 3), device=dev), lm_idx, u)
 
     def mv(A, v):
         return (A @ v[..., None])[..., 0]

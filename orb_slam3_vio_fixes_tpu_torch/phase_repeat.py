@@ -1,23 +1,38 @@
 """Repeat one phase of chip_smoke.py on the card, to see its spread.
 
     python -m orb_slam3_vio_fixes_tpu_torch.phase_repeat app
+    python -m orb_slam3_vio_fixes_tpu_torch.phase_repeat stereo_inertial [N]
     python -m orb_slam3_vio_fixes_tpu_torch.phase_repeat si_atlas [N]
+    python -m orb_slam3_vio_fixes_tpu_torch.phase_repeat determinism
 
 `app`: the facade's direct IMU_STEREO loop (phase 14's frames) and phase 15
 (the same frames through apps.main_template and the PipelineRunner) in
 turns, direct / app / app / direct / app, each app run printing its frame
-median beside the last direct loop's. `si_atlas`: phase 13 N times (default
-4), printing the Sim3 gates of every merge verification and whether each run
-passed. Needs a CUDA device; ~30 s per app or direct run, ~70-100 s per
-si_atlas run.
+median beside the last direct loop's. `stereo_inertial`: phase 7 N times
+(default 3); `si_atlas`: phase 13 N times (default 3), printing for every
+merge verification its Sim3 gates, the tilt of the world alignment the
+Sim3 implies, and both maps' median gravity error against the truth. Both print, per run, whether it passed,
+the gated value (phase 7's ATE, phase 13's final camera centre and its
+error) and a SHA-256 of the final map's keyframe poses and the tracker's
+pose, then whether every run gave the same bytes. `determinism`: phase 5's
+and phase 7's tracking passes with PyTorch's deterministic algorithms on,
+on with the fill of uninitialised memory, and off, in turns: fps, frame
+p50 / p95, ATE and the digest of each. Needs a CUDA device; ~30 s
+per app or direct run, ~60 s per stereo_inertial run, ~70-100 s per
+si_atlas run, ~8 min for determinism.
+
+Like chip_smoke.py, it switches PyTorch to deterministic algorithms before
+any CUDA work (utils/determinism.py).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -48,49 +63,149 @@ def _app(cs, dev, card) -> None:
             cs.app_path(dev, card, {"IMU_STEREO": last})
 
 
+def _digest(tr) -> str:
+    """SHA-256 of the final map's keyframe poses and the tracker's pose."""
+    h = hashlib.sha256()
+    for x in (tr.state.kf_R, tr.state.kf_t, tr.R, tr.t):
+        h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _repeat(name, n_runs, run, factory, value) -> None:
+    """Run a phase n_runs times, capturing the trackers `factory` (a name in
+    chip_smoke) makes; print each run's outcome, value(tracker) and digest,
+    then whether all digests agree."""
+    import chip_smoke as cs
+
+    made = []
+    build = getattr(cs, factory)
+
+    def capture(*a, **k):
+        made.append(build(*a, **k))
+        return made[-1]
+
+    digests = []
+    with mock.patch.object(cs, factory, capture):
+        for r in range(n_runs):
+            t0 = time.perf_counter()
+            try:
+                run()
+                status = "passed"
+            except RuntimeError as e:
+                status = f"failed ({e})"
+            digests.append(_digest(made[-1]))
+            print(f"[repeat] {name} run {r} {status} {value(made[-1])} "
+                  f"state_sha256={digests[-1]} seconds={time.perf_counter() - t0:.1f}",
+                  flush=True)
+    print(f"[repeat] {name}: {n_runs} runs, bitwise identical={len(set(digests)) == 1}",
+          flush=True)
+
+
+def _stereo_inertial(cs, dev, card, n_runs: int) -> None:
+    seq = cs.make_inertial_sequence()
+    _repeat("stereo_inertial", n_runs, lambda: cs.inertial_path(seq, dev, card),
+            "build_inertial_tracker",
+            lambda tr: f"ate_m={cs.trajectory_ate(seq.ts, seq.t_wc, tr, cs.VI_FRAMES)!r}")
+
+
 def _si_atlas(cs, dev, card, n_runs: int) -> None:
     from orb_slam3_vio_fixes_tpu_torch.slam_map import atlas as atlas_mod
     from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary
 
     vocab = vocabulary.default_vocabulary(dev)
     verify = atlas_mod.verify_cross_candidate
+    p = cs.SI_ATLAS_PLAN
+    seq = cs.make_si_loop_sequence(cs.SI_ATLAS_LAP, p["frames"])
+
+    def gravity_deg(state):
+        """Median angle between each live keyframe's gravity (world -Z in
+        the camera frame) and the truth's (the scene's -Y)."""
+        live = state.kf_valid.cpu().numpy()
+        kf_R = state.kf_R.cpu().numpy()[live].astype(np.float64)
+        fi = np.rint(state.kf_ts.cpu().numpy()[live] / (seq.ts[1] - seq.ts[0])).astype(int)
+        g_est = kf_R @ np.array([0.0, 0.0, -1.0])
+        g_true = np.einsum("kji,j->ki", seq.R_wc[fi], np.array([0.0, -1.0, 0.0]))
+        cos = np.clip((g_est * g_true).sum(-1), -1.0, 1.0)
+        return float(np.median(np.degrees(np.arccos(cos))))
 
     def logged(*a, **k):
         n_m, n_proj, sim = verify(*a, **k)
-        print(f"[merge-verify] kf={a[2]} cand={a[4]} n_m={int(n_m)} n_proj={int(n_proj)} "
-              f"n_inliers={int(sim.n_inliers)}", flush=True)
+        cur, kf, old, cand = a[1], a[2], a[3], a[4]
+        # the tilt of the world alignment the full Sim3 implies
+        Rw = (old.kf_R[cand].T @ sim.R.T @ cur.kf_R[kf]).cpu().numpy()
+        tilt = float(np.degrees(np.arccos(np.clip(Rw[2, 2], -1.0, 1.0))))
+        print(f"[merge-verify] kf={kf} cand={cand} n_m={int(n_m)} n_proj={int(n_proj)} "
+              f"n_inliers={int(sim.n_inliers)} alignment_tilt_deg={tilt!r} "
+              f"gravity_err_deg(active, stored)=({gravity_deg(cur)!r}, {gravity_deg(old)!r})",
+              flush=True)
         return n_m, n_proj, sim
 
-    atlas_mod.verify_cross_candidate = logged
-    try:
-        for run in range(n_runs):
-            t0 = time.perf_counter()
-            try:
-                cs.si_atlas_path(vocab, dev, card)
-                print(f"[repeat] run {run} passed {time.perf_counter() - t0:.1f}s", flush=True)
-            except RuntimeError as e:
-                print(f"[repeat] run {run} failed: {e}", flush=True)
-    finally:
-        atlas_mod.verify_cross_candidate = verify
+    def centre(tr):
+        c = -tr.R.cpu().numpy().T @ tr.t.cpu().numpy()
+        err = cs.aligned_centre_error(seq, tr, p["atlas_map"], p["frames"] - 1)
+        return f"centre={c.tolist()!r} centre_err_m={err!r}"
+
+    with mock.patch.object(atlas_mod, "verify_cross_candidate", logged):
+        _repeat("si_atlas", n_runs, lambda: cs.si_atlas_path(vocab, dev, card),
+                "build_si_loop_tracker", centre)
+
+
+def _determinism(cs, dev, card) -> None:
+    """Phases 5 and 7's tracking passes with deterministic algorithms on
+    (as utils/determinism.py sets them: no fill of uninitialised memory),
+    on with the fill, and off, in turns (one process, one card)."""
+    import torch.utils.deterministic as tud
+
+    from orb_slam3_vio_fixes_tpu_torch.evaluation import ate
+
+    on, fill, off = (True, False), (True, True), (False, False)
+    plans = {"stereo": (cs.make_sequence(), cs.run_pass, (on, fill, off, off, fill, on)),
+             "stereo_inertial": (cs.make_inertial_sequence(), cs.run_inertial_pass,
+                                 (on, fill, off, off, on))}
+    for name, (seq, run, modes) in plans.items():
+        for det, fill_memory in modes:
+            torch.use_deterministic_algorithms(det)
+            tud.fill_uninitialized_memory = fill_memory
+            tr, per_frame = run(seq, dev)
+            traj = tr.trajectory
+            rmse, _, _ = ate.ate_rmse(seq.ts, seq.t_wc, np.array([x[0] for x in traj]),
+                                      np.array([-R.T @ t for _, R, t in traj]))
+            ms = 1e3 * np.asarray(per_frame[1:])
+            print(f"[determinism] {card}: {name} deterministic={det} fill={fill_memory} "
+                  f"fps={float(len(ms) / ms.sum() * 1e3)!r} p50_ms={float(np.median(ms))!r} "
+                  f"p95_ms={float(np.percentile(ms, 95))!r} ate_m={rmse!r} "
+                  f"state_sha256={_digest(tr)}", flush=True)
+    torch.use_deterministic_algorithms(True)
+    tud.fill_uninitialized_memory = False
+
+
+TARGETS = ("app", "stereo_inertial", "si_atlas", "determinism")
 
 
 def main(argv=None) -> int:
     import chip_smoke as cs  # the scenarios, phases and checks (repository root)
 
     from orb_slam3_vio_fixes_tpu_torch import kernels
+    from orb_slam3_vio_fixes_tpu_torch.utils import determinism
 
     argv = sys.argv[1:] if argv is None else argv
-    if not argv or argv[0] not in ("app", "si_atlas"):
+    if not argv or argv[0] not in TARGETS:
         raise SystemExit(__doc__)
     card = cs.card_facts()
+    determinism.enable()            # before any CUDA work
     print(f"[card] {card}", flush=True)
     kernels.build()
     kernels.library()
     dev = torch.device("cuda")
+    n_runs = int(argv[1]) if len(argv) > 1 else 3
     if argv[0] == "app":
         _app(cs, dev, card)
+    elif argv[0] == "stereo_inertial":
+        _stereo_inertial(cs, dev, card, n_runs)
+    elif argv[0] == "si_atlas":
+        _si_atlas(cs, dev, card, n_runs)
     else:
-        _si_atlas(cs, dev, card, int(argv[1]) if len(argv) > 1 else 4)
+        _determinism(cs, dev, card)
     return 0
 
 

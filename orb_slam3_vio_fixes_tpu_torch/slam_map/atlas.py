@@ -8,6 +8,13 @@ and writes every valid keyframe and landmark of the active map into the
 stored map's free slots through the world-alignment Sim3, in one batched
 scatter per field.
 
+An inertial map's roll and pitch are fixed by gravity, so once the active
+map's gravity has settled (the tracker's report) a merge of inertial maps
+keeps only the yaw and the translation of the verified Sim3, at scale 1
+(`AtlasConfig.inertial`), as ORB-SLAM3 forces yaw-only merges for inertial
+maps after their first inertial refinement; the JAX package applies the
+full Sim3.
+
 The reference's merge sends the rows of invalid source slots to the last
 destination slot and writes that slot's old value back, so a valid row that
 lands on the same slot races with the pads (the winner is unspecified). The
@@ -45,6 +52,7 @@ class AtlasConfig(NamedTuple):
     merge_window: int = 8
     n_hyp: int = 256
     fix_scale: bool = True
+    inertial: bool = False      # yaw-and-translation merges of gravity-aligned maps
 
 
 def verify_cross_candidate(gen: torch.Generator, cur: ms.MapState,
@@ -181,8 +189,12 @@ class Atlas:
             return None
         return best[1], best[2]
 
-    def try_merge(self, state: ms.MapState, kf_id: int, n_kf: int, n_lm: int):
-        """Verify and merge the active map into a stored map. Returns
+    def try_merge(self, state: ms.MapState, kf_id: int, n_kf: int, n_lm: int,
+                  gravity_aligned: bool = False):
+        """Verify and merge the active map into a stored map; with
+        `cfg.inertial` and a `gravity_aligned` active map (its IMU
+        initialised and its gravity settled), the alignment keeps the Sim3's
+        yaw and translation only. Returns
         (merged_state, n_kf', n_lm', kf_offset, old_hists) or None."""
         cand = self.detect_merge(state, kf_id)
         if cand is None:
@@ -212,6 +224,9 @@ class Atlas:
         s_s = float(sim.s)
         R_cur, t_cur = state.kf_R[kf_id].cpu().numpy(), state.kf_t[kf_id].cpu().numpy()
         R_cand, t_cand = sm.state.kf_R[ci].cpu().numpy(), sm.state.kf_t[ci].cpu().numpy()
+        if self.cfg.inertial and gravity_aligned:
+            R_s, t_s = sim3_ops.yaw_only(R_s, t_s, R_cur, t_cur, R_cand, t_cand)
+            s_s = 1.0
         Rw = R_cand.T @ R_s.T @ R_cur
         tw = R_cand.T @ ((1.0 / s_s) * R_s.T @ (t_cur - t_s)) - R_cand.T @ t_cand
         merged = merge_maps(sm.state, state, sm.n_kf, sm.n_lm,

@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import torch
 
+from orb_slam3_vio_fixes_tpu_torch.utils.linalg import index_add_rows, spread_dumps
+
 
 class MapConfig(NamedTuple):
     max_keyframes: int = 256
@@ -149,8 +151,10 @@ def observation_matrix(state: MapState) -> torch.Tensor:
     flat_l = obs.reshape(-1).to(torch.int64)
     good = flat_l >= 0
     flat_k = torch.arange(K, device=obs.device).repeat_interleave(N)
-    ind = torch.zeros((K, L + 1), dtype=torch.bool, device=obs.device)
-    ind[flat_k, torch.where(good, flat_l, torch.full_like(flat_l, L))] = True
+    # features without a landmark write True into a dump column each
+    dump = L + torch.arange(N, device=obs.device).repeat(K)
+    ind = torch.zeros((K, L + N), dtype=torch.bool, device=obs.device)
+    ind[flat_k, torch.where(good, flat_l, dump)] = True
     return ind[:, :L]
 
 
@@ -184,15 +188,15 @@ def update_landmark_stats(state: MapState, n_levels: int = 8,
     dist = torch.linalg.norm(d, dim=-1)
     d_norm = d / torch.clamp(dist[:, None], min=1e-9)
     zero = torch.zeros((), device=dev)
-    normal_sum = torch.zeros((L, 3), device=dev).index_add_(
-        0, tgt, torch.where(good[:, None], d_norm, zero))
-    cnt = torch.zeros(L, device=dev).index_add_(0, tgt, good.to(torch.float32))
+    normal_sum = index_add_rows(torch.zeros((L, 3), device=dev), tgt,
+                                torch.where(good[:, None], d_norm, zero), good)
+    cnt = index_add_rows(torch.zeros(L, device=dev), tgt, good.to(torch.float32), good)
     normal = normal_sum / torch.clamp(cnt[:, None], min=1.0)
     normal = normal / torch.clamp(torch.linalg.norm(normal, dim=-1, keepdim=True),
                                   min=1e-9)
     sf = scale ** state.kf_octave.reshape(-1).to(torch.float32)
-    maxd_sum = torch.zeros(L, device=dev).index_add_(
-        0, tgt, torch.where(good, dist * sf, zero))
+    maxd_sum = index_add_rows(torch.zeros(L, device=dev), tgt,
+                              torch.where(good, dist * sf, zero), good)
     maxdist = maxd_sum / torch.clamp(cnt, min=1.0)
     mindist = maxdist / (scale ** (n_levels - 1))
     keep = state.lm_valid
@@ -234,12 +238,13 @@ def excise_keyframes(state: MapState, cull_ids: torch.Tensor) -> MapState:
 def set_masked(field: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
                 value) -> torch.Tensor:
     """Copy of `field` with field[idx[i]] = value where mask[i]; unmasked rows
-    go to a dump slot past the end, so a pad index (clamped to a real one)
-    never races a real write: index_put_ with duplicate indices has no
-    defined winner on the GPU."""
-    n = field.shape[0]
-    ext = torch.cat([field, field[:1]])
-    ext[torch.where(mask, idx, torch.full_like(idx, n))] = value
+    go to dump rows past the end, one each, so a pad index (clamped to a
+    real one) never races a real write (index_put_ with duplicate indices
+    has no defined winner on the GPU) and never serialises the scatter
+    (`linalg.spread_dumps`)."""
+    n, m = field.shape[0], idx.shape[0]
+    ext = torch.cat([field, field.new_zeros((m,) + tuple(field.shape[1:]))])
+    ext[spread_dumps(idx, mask, n)] = value
     return ext[:n]
 
 

@@ -1,14 +1,16 @@
 """System facade: the top-level SLAM entry point (port of
-orb_slam3_vio_fixes_tpu/system.py for the stereo-family sensors).
+orb_slam3_vio_fixes_tpu/system.py).
 
 `SLAMSystem` wires a tracker, a loop closer, a relocaliser and an Atlas
-around one MapState for STEREO, IMU_STEREO, RGBD and IMU_RGBD. Distorted
-pin-hole rigs are rectified (stereo) or undistorted (RGB-D) per frame on the
-device. The monocular modes, a KannalaBrandt8 rig and the multi-device
-`mesh` wait for later slices and raise NotImplementedError.
+around one MapState for every sensor mode: MONOCULAR, STEREO, RGBD,
+IMU_MONOCULAR, IMU_STEREO and IMU_RGBD. Distorted pin-hole rigs are
+rectified (stereo) or undistorted (monocular, RGB-D) per frame on the
+device. A KannalaBrandt8 rig and the multi-device `mesh` wait for later
+slices and raise NotImplementedError.
 
 The facade runs on the card unless the caller passes `device="cpu"`; it
-raises when CUDA is absent rather than falling back.
+raises when CUDA is absent rather than falling back. It switches PyTorch to
+deterministic algorithms (`utils/determinism.py`): one input, one answer.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from orb_slam3_vio_fixes_tpu_torch.frontend import loop_closing as lc_mod
 from orb_slam3_vio_fixes_tpu_torch.frontend import relocalization as rl_mod
 from orb_slam3_vio_fixes_tpu_torch.frontend import tracking as trk
 from orb_slam3_vio_fixes_tpu_torch.frontend.inertial_tracking import (
-    InertialConfig, StereoInertialTracker)
+    InertialConfig, MonoInertialTracker, StereoInertialTracker)
+from orb_slam3_vio_fixes_tpu_torch.frontend.mono_tracking import MonoInit, MonocularTracker
 from orb_slam3_vio_fixes_tpu_torch.imu import preintegration as pre
 from orb_slam3_vio_fixes_tpu_torch.io import trajectory as traj_io
 from orb_slam3_vio_fixes_tpu_torch.io.settings import Settings, load_settings
@@ -33,6 +36,7 @@ from orb_slam3_vio_fixes_tpu_torch.slam_map import atlas as atlas_mod
 from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
 from orb_slam3_vio_fixes_tpu_torch.slam_map import snapshot
 from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary as voc
+from orb_slam3_vio_fixes_tpu_torch.utils import determinism
 
 __all__ = ["SLAMSystem", "Sensor"]
 
@@ -59,8 +63,7 @@ class SLAMSystem:
                  map_cfg: Optional[ms.MapConfig] = None,
                  tracker_cfg: Optional[trk.TrackerConfig] = None, mesh=None,
                  device="cuda"):
-        if sensor.is_monocular:
-            raise NotImplementedError(f"the {sensor.name} mode is not ported yet")
+        determinism.enable()
         if mesh is not None:
             raise NotImplementedError("the multi-device mesh is not ported yet")
         self.device = _device(device)
@@ -102,18 +105,21 @@ class SLAMSystem:
 
         closer = reloc = atl = None
         if vocab is not None:
-            # metric maps (stereo, RGB-D, inertial) fix the scale; inertial
-            # maps use the 4-DoF graph with the scale gate and yaw clamp, and
-            # the tracker's full-map VI BA as their global BA
+            # the scale is fixed for every sensor but pure monocular (stereo,
+            # RGB-D and inertial maps are metric); inertial maps use the
+            # 4-DoF graph with the scale gate and yaw clamp, the tracker's
+            # full-map VI BA as their global BA, and merges aligned in yaw
+            # and translation only
             closer = lc_mod.LoopCloser(
                 vocab, s.cam1, map_cfg.max_keyframes, inv_s2,
-                lc_mod.LoopConfig(fix_scale=True, inertial=sensor.has_imu,
-                                  run_gba=not sensor.has_imu),
-                bf=s.bf or 0.0, n_levels=cfg.orb.n_levels, scale=cfg.orb.scale,
-                device=dev)
+                lc_mod.LoopConfig(fix_scale=sensor != Sensor.MONOCULAR,
+                                  inertial=sensor.has_imu, run_gba=not sensor.has_imu),
+                bf=(s.bf or 0.0) if not sensor.is_monocular else 0.0,
+                n_levels=cfg.orb.n_levels, scale=cfg.orb.scale, device=dev)
             reloc = rl_mod.Relocalizer(vocab, lambda: closer.db, device=dev)
             atl = atlas_mod.Atlas(map_cfg, vocab, s.cam1, inv_s2,
-                                  atlas_mod.AtlasConfig(fix_scale=True), device=dev)
+                                  atlas_mod.AtlasConfig(fix_scale=not sensor.is_monocular,
+                                                        inertial=sensor.has_imu), device=dev)
         self.loop_closer = closer
         self.relocalizer = reloc
         self.atlas = atl
@@ -123,9 +129,17 @@ class SLAMSystem:
             calib = pre.ImuCalib.make(s.noise_gyro, s.noise_acc, s.walk_gyro, s.walk_acc,
                                       s.imu_freq, R_bc=T_bc[:3, :3], t_bc=T_bc[:3, 3],
                                       device=dev)
-            self.tracker = StereoInertialTracker(
-                s.cam1, s.bf, calib, cfg, InertialConfig(), device=dev,
-                loop_closer=closer, relocalizer=reloc, atlas=atl)
+            if sensor.is_monocular:
+                self.tracker = MonoInertialTracker(
+                    s.cam1, calib, cfg, device=dev, loop_closer=closer,
+                    relocalizer=reloc, atlas=atl)
+            else:
+                self.tracker = StereoInertialTracker(
+                    s.cam1, s.bf, calib, cfg, InertialConfig(), device=dev,
+                    loop_closer=closer, relocalizer=reloc, atlas=atl)
+        elif sensor.is_monocular:
+            self.tracker = MonocularTracker(s.cam1, cfg, device=dev, loop_closer=closer,
+                                            relocalizer=reloc, atlas=atl)
         else:
             self.tracker = trk.StereoTracker(s.cam1, s.bf, cfg, device=dev,
                                              loop_closer=closer, relocalizer=reloc,
@@ -175,7 +189,13 @@ class SLAMSystem:
         return self.tracker.process_rgbd(img, depth, ts)
 
     def track_monocular(self, img, ts: float, imu=None):
-        raise ValueError(f"track_monocular called in {self.sensor} mode")
+        if not self.sensor.is_monocular:
+            raise ValueError(f"track_monocular called in {self.sensor} mode")
+        if self._undist_map is not None:
+            img = rec.remap_bilinear(self._to_f32(img), self._undist_map)
+        if self.sensor == Sensor.IMU_MONOCULAR:
+            return self.tracker.process_mono_inertial(img, ts, self._no_imu(imu))
+        return self.tracker.process_mono(img, ts)
 
     # -- mode switches / lifecycle --
 
@@ -210,6 +230,8 @@ class SLAMSystem:
         tr._window_key = None
         if isinstance(tr, StereoInertialTracker):
             tr._reset_inertial_state()
+        if isinstance(tr, MonoInit):
+            tr.ref_frame = None
         if self.loop_closer is not None:
             self.loop_closer.reset()
 

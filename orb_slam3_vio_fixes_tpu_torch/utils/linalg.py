@@ -70,18 +70,40 @@ def inv6(A: torch.Tensor) -> torch.Tensor:
                       torch.cat([bl, Sinv], dim=-1)], dim=-2)
 
 
+def spread_dumps(idx: torch.Tensor, keep: torch.Tensor, n: int) -> torch.Tensor:
+    """idx where `keep`, else a dump row of its own past `n` (n + position):
+    for a scatter into n + len(idx) rows whose first n are kept. CUDA's
+    deterministic index_put_ / index_add_ walk a run of equal indices one
+    row after the other in one warp, so a dump row shared by the padding of
+    a fixed-capacity list (up to K * N rows in a global BA) serialises the
+    whole scatter."""
+    return torch.where(keep, idx, n + torch.arange(idx.shape[0], device=idx.device))
+
+
+def index_add_rows(out: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
+                   keep: torch.Tensor = None) -> torch.Tensor:
+    """out.index_add_(0, idx, values) for the rows `keep` (default: the rows
+    of `values` that are not all zero, which add nothing); the other rows go
+    to dump rows (`spread_dumps`). Returns out."""
+    n, m = out.shape[0], idx.shape[0]
+    if keep is None:
+        keep = values.reshape(m, -1).ne(0).any(1)
+    ext = torch.cat([out, out.new_zeros((m,) + tuple(out.shape[1:]))])
+    ext.index_add_(0, spread_dumps(idx, keep, n), values)
+    return out.copy_(ext[:n])
+
+
 def compact_indices(mask: torch.Tensor, budget: int):
     """Stable compaction: indices of the first `budget` True entries of
     `mask`. Returns (idx (budget,) int64, filled (budget,) bool); unfilled
     slots point at index 0 — mask gathered data with `filled`. Entries past
-    the budget scatter into a dump slot that is cut off, so no two writes
+    the budget scatter into dump slots that are cut off, so no two writes
     land on a kept index."""
     n = mask.shape[0]
     dev = mask.device
     pos = torch.cumsum(mask.to(torch.int64), 0) - 1
-    tgt = torch.where(mask & (pos < budget), pos,
-                      torch.full_like(pos, budget))
-    out = torch.zeros(budget + 1, dtype=torch.int64, device=dev)
+    tgt = spread_dumps(pos, mask & (pos < budget), budget)
+    out = torch.zeros(budget + n, dtype=torch.int64, device=dev)
     out[tgt] = torch.arange(n, dtype=torch.int64, device=dev)
     n_fill = torch.clamp(mask.sum(), max=budget)
     filled = torch.arange(budget, device=dev) < n_fill

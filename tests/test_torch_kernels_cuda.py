@@ -4,14 +4,24 @@ machine with a card:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
 
-Tolerance: exact — both kernels compute integers.
+Tolerance: exact — both kernels compute integers. The last test runs 10
+stereo-inertial frames twice in PyTorch's deterministic mode and asks for
+bitwise equal poses.
 """
 
+import os
+
+import numpy as np
 import pytest
 import torch
 
 from orb_slam3_vio_fixes_tpu_torch import kernels
 from orb_slam3_vio_fixes_tpu_torch.ops import fast, matching
+from orb_slam3_vio_fixes_tpu_torch.utils import determinism
+
+# cuBLAS reads its workspace setting when its handle is made: before any test
+# of this module touches the card
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", determinism.WORKSPACE)
 
 pytestmark = pytest.mark.cuda
 
@@ -62,3 +72,17 @@ def test_wrappers_refuse_bad_inputs(dev):
     d = torch.zeros(4, 8, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         matching.hamming_match(d, d, torch.ones(4, 5, dtype=torch.bool, device=dev), True)
+
+
+def test_stereo_inertial_frames_repeat_bitwise(dev):
+    import chip_smoke as cs
+
+    determinism.enable()
+    seq = cs.make_inertial_sequence(10)
+    poses = []
+    for _ in range(2):
+        tr = cs.build_inertial_tracker(seq, dev)
+        out = [cs.track_frame(tr, seq, i) for i in range(10)]
+        poses.append(np.stack([np.concatenate([R.ravel(), t]) for R, t, _ in out]))
+    assert torch.are_deterministic_algorithms_enabled()
+    assert np.array_equal(poses[0], poses[1])

@@ -153,6 +153,27 @@ def test_compact_indices(rng, budget):
     np.testing.assert_array_equal(t2n(ft), j2n(fj))
 
 
+@pytest.mark.parametrize("keep", ["nonzero", "mask"])
+def test_index_add_rows(rng, keep):
+    """Exact on the CPU: the kept rows add as index_add_ adds them (the same
+    order per index); rows of zeros, or rows outside the mask, go to dump
+    rows of their own (the padding of a fixed-capacity factor list, which
+    shares one index, would otherwise serialise CUDA's deterministic
+    index_add_)."""
+    m, n = 500, 40
+    idx = torch.from_numpy(rng.integers(0, n, m))
+    vals = torch.from_numpy(rng.normal(size=(m, 3, 3)).astype(np.float32))
+    pad = torch.from_numpy(rng.random(m) < 0.6)
+    idx = torch.where(pad, torch.zeros_like(idx), idx)     # padding on row 0
+    vals = torch.where(pad[:, None, None], torch.zeros_like(vals), vals)
+    ref = torch.zeros((n, 3, 3)).index_add_(0, idx, vals)
+    out = torch.full((n, 3, 3), 7.0).zero_()
+    got = tlinalg.index_add_rows(out, idx, vals, None if keep == "nonzero" else ~pad)
+    assert got is out and torch.equal(got, ref)
+    dumps = tlinalg.spread_dumps(idx, ~pad, n)
+    assert torch.equal(dumps[~pad], idx[~pad]) and dumps[pad].unique().numel() == int(pad.sum())
+
+
 CAMS = {
     "pinhole": ((458.0, 457.0, 367.2, 248.4), None),
     "kb8": ((190.0, 190.5, 254.9, 256.9), (0.0034, 0.0007, -0.0024, 0.0004)),

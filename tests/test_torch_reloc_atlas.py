@@ -270,3 +270,92 @@ def test_snapshot_round_trip(scene, jax_map, tmp_path):
         tsnap.load_map(p3, vocab=port_vocab(jvoc.train(m["fields"]["kf_desc"][0, :200],
                                                         branching=4, depth=2)),
                        device="cpu")
+
+
+def _so3(axis, angle):
+    """Rotation by `angle` about the unit `axis` (Rodrigues)."""
+    k = np.asarray(axis, np.float64)
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(angle) * Kx + (1 - np.cos(angle)) * Kx @ Kx
+
+
+@pytest.mark.parametrize("since_init", [10.0, 0.5], ids=["settled", "just_initialised"])
+def test_inertial_merge_keeps_gravity(since_init, monkeypatch, tmp_path):
+    """A marginal merge hit replayed through an IMU_STEREO facade's tracker:
+    the verified Sim3 carries a 2-degree roll error (a 17-inlier hit).
+    Inertial maps are gravity-aligned, so once the active map's IMU has had
+    5 s of data since its initialisation (`settled`) the merge keeps only
+    the Sim3's yaw and translation: every merged-in keyframe's body-frame
+    gravity stays within 0.1 degree of its value before the merge (with the
+    full Sim3 it tilts by the 2 degrees). Half a second after the
+    initialisation (`just_initialised`) the map's gravity is not trusted
+    yet and the full Sim3 applies."""
+    from orb_slam3_vio_fixes_tpu_torch import system as sysm
+    from orb_slam3_vio_fixes_tpu_torch.ops import sim3 as tsim3
+    from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as tms
+
+    from test_torch_system import IMU_YAML, small_map
+
+    path = tmp_path / "imu.yaml"
+    path.write_text(IMU_YAML)
+    slam = sysm.SLAMSystem(str(path), sysm.Sensor.IMU_STEREO, map_cfg=small_map(),
+                           device="cpu")
+    tr = slam.tracker
+    tr.loop_closer = None
+    cfg = tr.cfg.map
+    g = np.array([0.0, 0.0, -1.0])
+
+    def gravity_aligned_map(poses, n_lm):
+        st = tms.empty(cfg, "cpu")
+        for k, (R_wc, C) in enumerate(poses):
+            st.kf_R[k] = torch.as_tensor(R_wc.T, dtype=torch.float32)
+            st.kf_t[k] = torch.as_tensor(-R_wc.T @ C, dtype=torch.float32)
+            st.kf_valid[k] = True
+            st.kf_ts[k] = 0.1 * k
+        st.lm_pos[:n_lm] = torch.randn(n_lm, 3, generator=torch.Generator().manual_seed(0))
+        st.lm_valid[:n_lm] = True
+        return st
+
+    # a camera looking along the world's +x axis (z forward, y down)
+    R0 = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    active = [(_so3([0, 0, 1], 0.1 * k) @ R0, np.array([0.3 * k, 0.1, 0.0])) for k in range(3)]
+    stored = [(_so3([0, 0, 1], 0.4) @ R0, np.array([2.0, -1.0, 0.0]))]
+    tr.state = gravity_aligned_map(active, 20)
+    tr.n_kf, tr.n_lm, tr.kf_order = 3, 20, [0, 1, 2]
+    tr._kf_nlm_dev = torch.tensor(20)
+    tr.imu_ready = True
+    tr.t_imu_init = float(tr.state.kf_ts[2]) - since_init
+    hists = np.zeros((1, 4), np.float32)
+    slam.atlas.stored = [tatlas.StoredMap(gravity_aligned_map(stored, 10), 1, 10, hists)]
+    monkeypatch.setattr(slam.atlas, "detect_merge", lambda state, kf: (0, 0))
+    # the true alignment (active world -> stored world: a yaw and a shift),
+    # measured with a 2-degree roll error about the candidate camera's axis
+    Rw, tw = _so3([0, 0, 1], 0.25), np.array([0.5, -0.2, 0.0])
+    R_cur, t_cur = tr.state.kf_R[2].numpy(), tr.state.kf_t[2].numpy()
+    st = slam.atlas.stored[0].state
+    R_cand, t_cand = st.kf_R[0].numpy(), st.kf_t[0].numpy()
+    R_s = R_cur @ Rw.T @ R_cand.T
+    t_s = R_cur @ Rw.T @ (-R_cand.T @ t_cand - tw) + t_cur
+    R_s = R_s @ _so3([0, 0, 1], np.radians(2.0))
+    N = cfg.max_features
+    sim = tsim3.Sim3Result(torch.as_tensor(R_s, dtype=torch.float32),
+                           torch.as_tensor(t_s, dtype=torch.float32), torch.tensor(1.0),
+                           torch.zeros(N, dtype=torch.bool), torch.tensor(17))
+    monkeypatch.setattr(tatlas, "verify_cross_candidate",
+                        lambda *a, **k: (torch.tensor(60), torch.tensor(60), sim))
+    merged = []
+    monkeypatch.setattr(tr, "_adopt_merge", lambda res, kf_id: merged.append(res) or kf_id)
+    before = tr.state.kf_R[:3].numpy().copy()
+    tr._kf_stage_finalize(2)
+    assert len(merged) == 1 and slam.atlas.n_merges == 1
+    state, _, _, kf_off, _ = merged[0]
+    after = state.kf_R[kf_off:kf_off + 3].numpy()
+    cos = np.clip(np.einsum("ki,ki->k", before @ g, after @ g), -1.0, 1.0)
+    tilt = np.degrees(np.arccos(cos))
+    if since_init < 5.0:
+        assert np.abs(tilt - 2.0).max() < 0.01, tilt
+        return
+    assert tilt.max() < 0.1, tilt
+    # the yaw and the seam are those of the measurement
+    C_cur = -after[2].T @ state.kf_t[kf_off + 2].numpy()
+    assert np.linalg.norm(C_cur - (Rw @ active[2][1] + tw)) < 0.05

@@ -12,6 +12,9 @@ Tolerances:
 - trajectory files byte-equal to the JAX writers' for the same trajectory;
 - the dataset loaders return the same index (paths, stamps, IMU arrays) on
   tests/test_datasets.py's fixtures;
+- the monocular modes through track_monocular: MONOCULAR under
+  tests/test_e2e_mono.py's bar (scale-aligned ATE < 0.10 m), IMU_MONOCULAR
+  tracking OK after its two-view initialisation;
 - the facade twins under tests/test_system.py's bars (state OK, >= 2
   keyframes, localisation mode relocalises into a loaded map without adding
   keyframes, camera centre within 0.1 m); the stereo run also against the
@@ -37,6 +40,8 @@ from orb_slam3_vio_fixes_tpu_torch import system as sysm
 from orb_slam3_vio_fixes_tpu_torch.evaluation import ate
 from orb_slam3_vio_fixes_tpu_torch.frontend import tracking
 from orb_slam3_vio_fixes_tpu_torch.frontend.frame import build_stereo_frame_impl
+from orb_slam3_vio_fixes_tpu_torch.frontend.inertial_tracking import MonoInertialTracker
+from orb_slam3_vio_fixes_tpu_torch.frontend.mono_tracking import MonocularTracker
 from orb_slam3_vio_fixes_tpu_torch.io import datasets as tds
 from orb_slam3_vio_fixes_tpu_torch.io import settings as tset
 from orb_slam3_vio_fixes_tpu_torch.io import synthetic
@@ -229,6 +234,47 @@ def system(path, vocab=None):
                            tracker_cfg=small_tracker_cfg(), device="cpu")
 
 
+IMU_YAML = YAML + """IMU.NoiseGyro: 1.7e-04
+IMU.NoiseAcc: 2.0e-03
+IMU.GyroWalk: 1.9393e-05
+IMU.AccWalk: 3.0e-03
+IMU.Frequency: 200.0
+"""
+
+
+def test_determinism_enable(settings_path, monkeypatch):
+    """utils.determinism.enable: sets the cuBLAS workspace when unset, refuses
+    once CUDA is initialised without it or with a workspace cuBLAS does not
+    run deterministically, and turns the mode on without the NaN fill of
+    uninitialised memory; the facade calls it."""
+    from orb_slam3_vio_fixes_tpu_torch.utils import determinism
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.utils.deterministic.fill_uninitialized_memory)
+    try:
+        torch.use_deterministic_algorithms(False)
+        monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "is_initialized", lambda: True)
+            with pytest.raises(RuntimeError, match="CUBLAS_WORKSPACE_CONFIG"):
+                determinism.enable()
+        assert not torch.are_deterministic_algorithms_enabled()
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":0:0")
+        with pytest.raises(RuntimeError, match=":0:0"):
+            determinism.enable()
+        monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG")
+        determinism.enable()
+        assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+        assert torch.are_deterministic_algorithms_enabled()
+        assert not torch.utils.deterministic.fill_uninitialized_memory
+        torch.use_deterministic_algorithms(False)
+        sysm.SLAMSystem(settings_path, sysm.Sensor.STEREO, vocab=None, device="cpu")
+        assert torch.are_deterministic_algorithms_enabled()
+    finally:
+        torch.use_deterministic_algorithms(was[0])
+        torch.utils.deterministic.fill_uninitialized_memory = was[1]
+
+
 def test_settings_parse(settings_path):
     s = tset.load_settings(settings_path, sysm.Sensor.STEREO)
     assert s.cam1.fx == 260.0
@@ -236,7 +282,7 @@ def test_settings_parse(settings_path):
     assert s.n_features == 400
 
 
-def test_sensor_dispatch_guard(settings_path, monkeypatch):
+def test_sensor_dispatch_guard(settings_path, monkeypatch, tmp_path):
     slam = sysm.SLAMSystem(settings_path, sysm.Sensor.STEREO, map_cfg=small_map(),
                            device="cpu")
     assert slam.vocab.n_words == 100000 and slam.loop_closer.db.hist.shape[0] == 32
@@ -244,9 +290,21 @@ def test_sensor_dispatch_guard(settings_path, monkeypatch):
         slam.track_monocular(np.zeros((240, 352)), 0.0)
     with pytest.raises(ValueError):
         slam.track_rgbd(np.zeros((240, 352)), np.zeros((240, 352)), 0.0)
-    for sensor in (sysm.Sensor.MONOCULAR, sysm.Sensor.IMU_MONOCULAR):
-        with pytest.raises(NotImplementedError):
-            sysm.SLAMSystem(settings_path, sensor, vocab=None, device="cpu")
+    # the monocular modes: a monocular tracker, the scale free in the loop
+    # closer for MONOCULAR alone and in the Atlas for both, yaw-only merges
+    # for the inertial one; no stereo entry
+    imu_path = tmp_path / "imu.yaml"
+    imu_path.write_text(IMU_YAML)
+    for sensor, kind, inertial in ((sysm.Sensor.MONOCULAR, MonocularTracker, False),
+                                   (sysm.Sensor.IMU_MONOCULAR, MonoInertialTracker, True)):
+        mono = sysm.SLAMSystem(str(imu_path), sensor, map_cfg=small_map(), device="cpu")
+        assert type(mono.tracker) is kind and mono.tracker.bf == 0.0
+        assert mono.loop_closer.cfg.fix_scale == inertial
+        assert mono.loop_closer.cfg.inertial == inertial and mono.loop_closer.bf == 0.0
+        assert not mono.atlas.cfg.fix_scale and mono.atlas.cfg.inertial == inertial
+        with pytest.raises(ValueError):
+            mono.track_stereo(np.zeros((240, 352)), np.zeros((240, 352)), 0.0)
+    assert slam.atlas.cfg.fix_scale and not slam.atlas.cfg.inertial
     with pytest.raises(NotImplementedError):
         sysm.SLAMSystem(os.path.join(CFG, "TUM-VI.yaml"), sysm.Sensor.IMU_STEREO,
                         vocab=None, device="cpu")
@@ -255,8 +313,9 @@ def test_sensor_dispatch_guard(settings_path, monkeypatch):
                         device="cpu")
     # the card is the default, with no fallback when CUDA is absent
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        sysm.SLAMSystem(settings_path, sysm.Sensor.STEREO, vocab=None)
+    for sensor in (sysm.Sensor.STEREO, sysm.Sensor.MONOCULAR, sysm.Sensor.IMU_MONOCULAR):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            sysm.SLAMSystem(str(imu_path), sensor, vocab=None)
 
 
 def test_system_stereo_and_snapshot(settings_path, seq, tmp_path):
@@ -316,6 +375,55 @@ def test_system_stereo_and_snapshot(settings_path, seq, tmp_path):
     assert np.linalg.norm(C_est - seq.t_wc[15]) < 0.1
 
 
+def test_system_monocular_modes(tmp_path):
+    """MONOCULAR on tests/test_e2e_mono.py's 26 frames through
+    track_monocular: state OK, >= 3 keyframes, the scale-aligned ATE under
+    that test's 0.10 m, the Atlas saved and loaded back; IMU_MONOCULAR on
+    the first 12 frames of tests/test_e2e_mono_inertial.py's scene: the
+    two-view initialisation done, tracking OK, the IMU samples buffered
+    for the initialisation."""
+    path = tmp_path / "mono.yaml"
+    path.write_text(IMU_YAML)
+    rng = np.random.default_rng(7)
+    world = synthetic.make_world(rng, n_points=600, extent=7.0, depth_range=(2.5, 9.0))
+    s = synthetic.make_stereo_sequence(rng, n_frames=26, h=240, w=352, fx=260.0,
+                                       baseline=0.2, world=world, speed=(0.9, 0.0, 0.15),
+                                       yaw_rate=0.05)
+    cfg = small_tracker_cfg()._replace(max_frames_between_kf=6)
+    slam = sysm.SLAMSystem(str(path), sysm.Sensor.MONOCULAR, vocab=None, map_cfg=small_map(),
+                           tracker_cfg=cfg, device="cpu")
+    for i in range(26):
+        slam.track_monocular(s.imgs_l[i], s.ts[i])
+    assert slam.get_tracking_state() == tracking.TrackState.OK
+    assert slam.n_keyframes() >= 3
+    traj = slam.tracker.trajectory
+    rmse, _, n = ate.ate_rmse(s.ts, s.t_wc, np.array([x[0] for x in traj]),
+                              np.array([-R.T @ t for _, R, t in traj]), with_scale=True)
+    assert n == 26 and rmse < 0.10, rmse
+    snap = str(tmp_path / "mono.npz")
+    slam.save_atlas(snap)
+    slam2 = sysm.SLAMSystem(str(path), sysm.Sensor.MONOCULAR, vocab=None, map_cfg=small_map(),
+                            tracker_cfg=cfg, device="cpu")
+    slam2.load_atlas(snap)
+    assert torch.equal(slam2.tracker.state.lm_pos, slam.tracker.state.lm_pos)
+    assert slam2.tracker.kf_order == slam.tracker.kf_order
+
+    rng = np.random.default_rng(11)
+    world = synthetic.make_world(rng, n_points=700, extent=7.0, depth_range=(2.5, 9.0))
+    s = synthetic.make_stereo_inertial_sequence(rng, n_frames=12, h=240, w=352, fx=260.0,
+                                                baseline=0.2, world=world, imu_hz=200.0,
+                                                accel_amp=0.8)
+    slam = sysm.SLAMSystem(str(path), sysm.Sensor.IMU_MONOCULAR, vocab=None,
+                           map_cfg=small_map(), tracker_cfg=cfg, device="cpu")
+    for i in range(12):
+        slam.track_monocular(s.imgs_l[i], s.ts[i],
+                             s.imu[i - 1] if i > 0 else np.zeros((0, 7), np.float32))
+    tr = slam.tracker
+    assert slam.get_tracking_state() == tracking.TrackState.OK
+    assert tr.n_kf >= 2 and 1 in tr.kf_windows and not tr.imu_ready
+    assert slam.get_velocity() is not None
+
+
 def test_vocab_checksum_mismatch(settings_path, seq, tmp_path):
     slam = system(settings_path)
     for i in range(6):
@@ -331,14 +439,14 @@ def test_vocab_checksum_mismatch(settings_path, seq, tmp_path):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("mode", ["STEREO", "RGBD", "IMU_STEREO", "IMU_RGBD"])
+@pytest.mark.parametrize("mode", ["STEREO", "RGBD", "IMU_STEREO", "IMU_RGBD", "MONOCULAR",
+                                  "IMU_MONOCULAR"])
 def test_jax_facade_reference_at_full_width(mode, tmp_path):
     """Where chip_smoke.JAX_FACADE_ATE_M comes from: the JAX package's
     SLAMSystem (the default 10^5-word vocabulary) from chip_smoke's YAML on
-    chip_smoke's facade frames (the JAX generator), on the CPU. One to three
-    minutes per mode."""
+    chip_smoke's facade frames (the JAX generator), on the CPU, scored by
+    chip_smoke.facade_ate. One to three minutes per mode."""
     from orb_slam3_vio_fixes_tpu import system as jsys
-    from orb_slam3_vio_fixes_tpu.evaluation import ate as jate
     from orb_slam3_vio_fixes_tpu.io import synthetic as jsyn
 
     import chip_smoke
@@ -350,13 +458,14 @@ def test_jax_facade_reference_at_full_width(mode, tmp_path):
     for a, b, t, imu in frames:
         if slam.sensor.is_rgbd:
             slam.track_rgbd(a, b, t, imu)
+        elif slam.sensor.is_monocular:
+            slam.track_monocular(a, t, imu)
         else:
             slam.track_stereo(a, b, t, imu)
-    traj = slam.tracker.trajectory
-    rmse, _, n = jate.ate_rmse(ts, t_wc, np.array([x[0] for x in traj]),
-                               np.array([-R.T @ t for _, R, t in traj]))
+    rmse = chip_smoke.facade_ate(mode, slam.tracker, ts, t_wc, len(frames))
     jax.clear_caches()
-    assert slam.get_tracking_state() == "OK" and n == len(frames)
+    print(f"jax facade {mode} at 752x480: state={slam.get_tracking_state()} ate_m={rmse!r}")
+    assert slam.get_tracking_state() == "OK"
     assert abs(rmse - chip_smoke.JAX_FACADE_ATE_M[mode]) < 1e-6, rmse
 
 
