@@ -4,7 +4,10 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-Phases, in order (any failure raises and the script exits non-zero):
+Phases (any failure raises and the script exits non-zero). Phases 1-5 run
+in this process; phases 7-19 run meanwhile in five worker processes on the
+same card, grouped as WORKERS says, each group in its order; phase 6 runs
+last, once every worker has ended:
   1. card facts (nvidia-smi name and power limit); no CUDA -> exit non-zero;
   2. build the hand-written kernels from orb_slam3_vio_fixes_tpu_torch/csrc;
   3. K1 (FAST score) against its plain PyTorch twin, exact, on random and
@@ -37,15 +40,14 @@ Phases, in order (any failure raises and the script exits non-zero):
      least once per matcher call the control flow always makes; K1 and K2
      are held against their plain twins once more on this path's inputs;
      that pass also prints synchronised host-clock stage times and, from
-     torch.profiler over its last 10 frames, launches per frame and the
+     torch.profiler over its last 3 frames, launches per frame and the
      device's idle share (its separate timing pass is cut; phase 14's
      IMU_STEREO run times the same scene through the facade);
   8. loop closing: tests/test_e2e_loop.py's revisit (88 frames of 752x480
      around a 72-frame lap, 2 gray levels of noise) through the StereoTracker
      with a keyframe at least every 4 frames, first without and then with a
      LoopCloser on the 10^5-word vocabulary (launches counted, loop stages
-     timed per keyframe, each correction timed, the first profiled for its
-     device ops): at
+     timed per keyframe, each correction timed): at
      least one correction, the best hit 2x over every gate, the ATE below the
      run without the closer and within the stated bound of the JAX
      package's, the revisit gap below 0.8x; K1 and K2 exact on this path's
@@ -117,9 +119,32 @@ Phases, in order (any failure raises and the script exits non-zero):
      initialised with a free scale, the metric ATE from the IMU chain's
      first keyframe on within the stated bound of the JAX package's, the
      Horn scale within 0.12 of 1, the same kernel checks as phase 16.
+ 18. pipelining: phase 5's 80 frames through bench.py's tracker driven as
+     bench.py drives it (frame i + 1 uploads while frame i tracks, flush()
+     at the end) three times: sync, `pipelined` (each frame's tracking step
+     dispatched before the previous frame's decisions, keyed on the map's
+     write versions; the wide-radius retry selected on the device) and
+     `pipelined` with `async_kf` (local BA, culling, loop closing as one job
+     per later frame). Gates: pipelined equals sync bit for bit (the
+     trajectory, keyframe order, landmark count), async within
+     tests/test_pipelined.py's bars against sync, every pass's ATE within
+     phase 5's bound, K1 once per frame, K2 exact on the pipelined path's
+     densest motion-model mask. Prints per pass fps and frame p50 / p95
+     (frames 1-59, host clock), stream syncs per frame (frames 60-69), the
+     device's idle share (frames 70-79) and the speculation hit rate;
+ 19. the KannalaBrandt8 rig: configs/TUM-VI.yaml's two cameras, T_c1_c2,
+     T_b_c1 and IMU at 512x512 along bench.py's stereo-inertial trajectory
+     (a room-scale world), through SLAMSystem in IMU_STEREO and STEREO (40
+     frames each, tracked unrectified): frame 0's two-camera build (>= 60
+     depths, median relative error < 0.15 against the z-buffer), per mode
+     state OK and the ATE within the stated bound of the JAX package's
+     SLAMSystem on the same frames, K1 once per frame (B = 2, 512x512) and
+     K2 at least once per matcher call; K1 exact on frame 0's atlas, K2 on
+     its brute-force left-right mask.
 Phase 14 also runs MONOCULAR (40 frames) and IMU_MONOCULAR (60) through
 track_monocular. Each of phases 8-17 prints its K1/K2 launches and peak
-device memory. The whole script runs in PyTorch's deterministic mode
+device memory; phases 18-19 print their launches per pass and mode. The whole
+script runs in PyTorch's deterministic mode
 (utils/determinism.py, switched on before any CUDA work): one answer per
 input, so a gate passes or fails the same way on every run of one build.
 
@@ -159,6 +184,9 @@ N_FRAMES = 80
 JAX_VI_ATE_M = 0.008476832977569036
 VI_FRAMES = 60
 VI_SPEED_TOL = 0.25         # |v_est - v_gt| < 0.25 max(v_gt, 0.2) (test bar)
+# Frames of phase 7 under torch.profiler: each frame's ~35k kernel records
+# take seconds of the host to read.
+VI_PROFILED_FRAMES = 3
 
 # ATE of the JAX package's StereoTracker with a LoopCloser on the loop
 # scenario of make_loop_sequence (the same generator calls, seed and noise),
@@ -299,6 +327,30 @@ JAX_FACADE_ATE_M = {"STEREO": 0.005074487028276547, "RGBD": 0.004336191602072658
                     "IMU_STEREO": 0.006273376860191582, "IMU_RGBD": 0.00600935824044728,
                     "MONOCULAR": JAX_FACADE_MONO_ATE_M,
                     "IMU_MONOCULAR": JAX_FACADE_MONO_INERTIAL_ATE_M}
+
+# Phase 18: bench.py's tracker (phase 5's scenario) in sync mode, pipelined,
+# and pipelined with asynchronous keyframe jobs; the async pass against the
+# sync one within tests/test_pipelined.py's bars (landmark count within 10%,
+# camera centres within 0.01 m median and 0.05 m max).
+PIPELINE_MODES = (("sync", False, False), ("pipelined", True, False),
+                  ("async", True, True))
+ASYNC_LM_FRAC = 0.10
+ASYNC_MEDIAN_M = 0.01
+ASYNC_MAX_M = 0.05
+
+# Phase 19: a KannalaBrandt8 rig with configs/TUM-VI.yaml's calibration (both
+# cameras, T_c1_c2, T_b_c1, the IMU's rate and noise) at 512x512 along
+# bench.py's stereo-inertial trajectory (seed 11), through SLAMSystem; the
+# JAX package's SLAMSystem ATE on the same frames, measured once on a CPU
+# with JAX 0.9.0 by
+# tests/test_torch_fisheye.py::test_jax_fisheye_reference_at_full_width.
+FISHEYE_CONFIG = os.path.join("configs", "TUM-VI.yaml")
+FISHEYE_FRAMES = 40
+FISHEYE_MODES = ("IMU_STEREO", "STEREO")
+JAX_FISHEYE_ATE_M = {"IMU_STEREO": 0.041926531943301794, "STEREO": 0.05063428316676271}
+FISHEYE_POINTS = 800
+FISHEYE_MIN_DEPTHS = 60            # tests/test_fisheye_stereo.py's frame bars
+FISHEYE_DEPTH_REL = 0.15
 
 # Phase 15 writes the facade's IMU_STEREO frames as a EuRoC directory whose
 # stamps start here (nanoseconds).
@@ -796,7 +848,8 @@ def main_path(seq, device, card) -> dict:
 def inertial_path(seq, device, card) -> dict:
     """The stereo-inertial path once, counted, with the matcher's inputs of
     the post-init motion-model and local-map searches recorded, synchronised
-    host-clock stage times and torch.profiler over the last 10 frames
+    host-clock stage times and torch.profiler over the last
+    VI_PROFILED_FRAMES frames
     (launches per frame; `profile_track.py --inertial` gives them per
     stage); checks its outcome and holds K1 and K2 against their plain
     twins on this path's inputs. Returns the launch counts."""
@@ -823,7 +876,7 @@ def inertial_path(seq, device, card) -> dict:
             pt.stage_timers(pt.INERTIAL_STAGES) as times:
         tr = build_inertial_tracker(seq, device)
         step = functools.partial(track_frame, tr, seq)
-        start = VI_FRAMES - 10
+        start = VI_FRAMES - VI_PROFILED_FRAMES
         for i in range(start):
             step(i)
         pt.device_profile(step, range(start, VI_FRAMES), top=8, by_stage=False,
@@ -1002,27 +1055,18 @@ def frame_stats(per_frame) -> str:
 
 
 @contextlib.contextmanager
-def device_ops_per_call(owner, name):
-    """Time each call of owner.name (synchronised); the first runs under
-    torch.profiler, whose event processing takes seconds at this size.
-    Yields a list of (device ops: kernels, copies and memsets, or None;
-    ms) per call."""
-    from torch.profiler import ProfilerActivity, profile
-
+def ms_per_call(owner, name):
+    """Time each call of owner.name (synchronised). Yields the list of
+    milliseconds per call."""
     fn = getattr(owner, name)
     calls = []
 
     def wrapper(*a, **k):
         sync()
-        prof = profile(activities=[ProfilerActivity.CUDA]) if not calls else None
-        with prof or contextlib.nullcontext():
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            sync()
-            wall = 1e3 * (time.perf_counter() - t0)
-        n_ops = None if prof is None else sum(
-            e.count for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0)
-        calls.append((n_ops, wall))
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        sync()
+        calls.append(1e3 * (time.perf_counter() - t0))
         return out
 
     with mock.patch.object(owner, name, wrapper):
@@ -1065,8 +1109,8 @@ def check_launches(label, counts, n_frames, min_k2) -> None:
 
 def loop_path(seq, vocab, device, card) -> dict:
     """Phase 8: the loop scenario without and with the loop closer; the
-    second pass is counted, its loop stages timed (synchronised) and its
-    corrections profiled. Checks the correction, its margins and the ATE,
+    second pass is counted, its loop stages and corrections timed
+    (synchronised). Checks the correction, its margins and the ATE,
     and holds K1 and K2 against their plain twins on this path's inputs."""
     from orb_slam3_vio_fixes_tpu_torch import kernels
     from orb_slam3_vio_fixes_tpu_torch import profile_track as pt
@@ -1103,7 +1147,7 @@ def loop_path(seq, vocab, device, card) -> dict:
                               tagged("verify_candidate", lc.verify_candidate)), \
             mock.patch.object(matching, "match_descriptors",
                               tagged("match_descriptors", matching.match_descriptors)), \
-            device_ops_per_call(lc.LoopCloser, "_correct") as corrections, \
+            ms_per_call(lc.LoopCloser, "_correct") as corrections, \
             pt.stage_timers(stages) as times:
         tr, per_on = run_pass(seq, device,
                               build=lambda s, d: build_kf4_tracker(s, d, loop_closer=closer))
@@ -1130,9 +1174,8 @@ def loop_path(seq, vocab, device, card) -> dict:
     for label, ts in times.items():
         log(f"[stages] {card}: loop {label} per_keyframe_ms="
             f"{1e3 * sum(ts) / max(n_ins, 1):.3f} over {n_ins} keyframe inserts")
-    for i, (n_ops, ms) in enumerate(corrections):
-        log(f"[loop] {card}: correction {i}: device_ops={n_ops} wall_ms={ms:.1f}"
-            + (" (profiled)" if n_ops is not None else ""))
+    for i, ms in enumerate(corrections):
+        log(f"[loop] {card}: correction {i}: wall_ms={ms:.1f}")
     if tr.track_state != TrackState.OK:
         raise RuntimeError(f"loop final track state {tr.track_state}")
     if closer.n_corrections < 1 or best is None:
@@ -2061,7 +2104,408 @@ def app_path(device, card, facade_frame_s) -> dict:
     return counts
 
 
+def bench_pass(seq, device, card, label, pipelined, async_kf):
+    """bench.run_pass for the port: frame i + 1 uploads while frame i tracks,
+    flush() at the end. Frames 1-59 are timed on the host clock, 60-69 count
+    the stream syncs (torch.cuda.set_sync_debug_mode), 70-79 run under
+    torch.profiler (the device's idle share). Returns (tracker, numbers)."""
+    from orb_slam3_vio_fixes_tpu_torch import profile_track as pt
+
+    tr = build_tracker(seq, device)
+    tr.pipelined, tr.async_kf = pipelined, async_kf
+    n = seq.imgs_l.shape[0]
+    nxt = [tr._upload_pair(seq.imgs_l[0], seq.imgs_r[0])]
+    per_frame = []
+
+    def step(i):
+        f0 = time.perf_counter()
+        cur = nxt[0]
+        tr.process_stereo(cur, None, seq.ts[i])
+        if i + 1 < n:
+            nxt[0] = tr._upload_pair(seq.imgs_l[i + 1], seq.imgs_r[i + 1])
+        per_frame.append(time.perf_counter() - f0)
+
+    sync()
+    step(0)
+    t0 = time.perf_counter()
+    for i in range(1, 60):
+        step(i)
+    sync()
+    fps = 59 / (time.perf_counter() - t0)
+    syncs = pt.sync_sites(step, range(60, 70), prefix=f"[syncs] {card}: pipelined phase {label}")
+    prof = pt.device_profile(step, range(70, n), top=5, by_stage=False,
+                             prefix=f"[profile] {card}: pipelined phase {label} frames 70-{n - 1}")
+    tr.flush()
+    sync()
+    ms = 1e3 * np.asarray(per_frame[1:60])
+    out = {"fps": fps, "p50_ms": float(np.median(ms)), "p95_ms": float(np.percentile(ms, 95)),
+           "idle_share": prof["idle_share"], "syncs_per_frame": syncs,
+           "spec_dispatched": tr.spec_dispatched, "spec_reused": tr.spec_reused,
+           "hit_rate": tr.spec_reused / max(tr.spec_dispatched, 1)}
+    log(f"[timing] {card}: pipelined phase {label} " + " ".join(f"{k}={v!r}" for k, v in out.items())
+        + " (frames 1-59, host clock; idle share over frames 70-79)")
+    return tr, out
+
+
+def pipelined_path(seq, device, card) -> dict:
+    """Phase 18: the bench scenario through StereoTracker in sync mode,
+    pipelined, and pipelined with asynchronous keyframe jobs, driven as
+    bench.py drives it. Gates: pipelined equals sync bit for bit (trajectory,
+    keyframe order, landmarks); async within tests/test_pipelined.py's bars;
+    every pass's ATE within phase 5's bound; K1 once per frame in every pass;
+    K2 exact against its plain twin on the pipelined path's densest
+    motion-model mask (the device-side wide-radius retry). Returns the
+    launch counts per pass."""
+    from orb_slam3_vio_fixes_tpu_torch import kernels
+    from orb_slam3_vio_fixes_tpu_torch.evaluation import ate
+    from orb_slam3_vio_fixes_tpu_torch.frontend import tracking
+    from orb_slam3_vio_fixes_tpu_torch.frontend.tracking import TrackState
+    from orb_slam3_vio_fixes_tpu_torch.ops import matching
+
+    ate_bound = ATE_FACTOR * JAX_ATE_M + ATE_SLACK_M
+    runs, counts = {}, {}
+    for label, pipelined, async_kf in PIPELINE_MODES:
+        kernels.reset_launch_counts()
+        tr, numbers = bench_pass(seq, device, card, label, pipelined, async_kf)
+        counts[label] = kernels.launch_counts()
+        traj = tr.trajectory
+        C = np.array([-R.T @ t for _, R, t in traj])
+        if not np.all(np.isfinite(C)) or C.shape != (N_FRAMES, 3):
+            raise RuntimeError(f"pipelined phase {label}: bad trajectory {C.shape}")
+        rmse, _, n = ate.ate_rmse(seq.ts, seq.t_wc, np.array([x[0] for x in traj]), C)
+        runs[label] = (tr, traj, C)
+        log(f"[pipelined] {label}: state={tr.track_state} keyframes={len(tr.kf_order)} "
+            f"landmarks={tr.n_lm} ate_rmse_m={rmse!r} bound_m={ate_bound!r} "
+            f"launches={counts[label]}")
+        if tr.track_state != TrackState.OK or n != N_FRAMES or not rmse <= ate_bound:
+            raise RuntimeError(f"pipelined phase {label}: state {tr.track_state}, ATE {rmse} m "
+                               f"(bound {ate_bound} m)")
+        if counts[label]["fast_score"] != N_FRAMES:
+            raise RuntimeError(f"pipelined phase {label}: K1 launched "
+                               f"{counts[label]['fast_score']} times for {N_FRAMES} frames")
+    (s_tr, s_traj, s_C), (p_tr, p_traj, _), (a_tr, _, a_C) = (
+        runs[label] for label, _, _ in PIPELINE_MODES)
+    same = (p_tr.kf_order == s_tr.kf_order and p_tr.n_lm == s_tr.n_lm
+            and all(np.array_equal(x[1], y[1]) and np.array_equal(x[2], y[2])
+                    for x, y in zip(s_traj, p_traj)))
+    err = np.linalg.norm(a_C - s_C, axis=1)
+    log(f"[pipelined] pipelined equals sync bit for bit: {same}; async against sync: "
+        f"same keyframe order {a_tr.kf_order == s_tr.kf_order}, landmarks {a_tr.n_lm} vs "
+        f"{s_tr.n_lm}, centre error median {float(np.median(err))!r} max {float(err.max())!r} m")
+    if not same:
+        raise RuntimeError("the pipelined trajectory differs from sync mode's")
+    if (a_tr.kf_order != s_tr.kf_order
+            or abs(a_tr.n_lm - s_tr.n_lm) > ASYNC_LM_FRAC * s_tr.n_lm
+            or not np.median(err) < ASYNC_MEDIAN_M or not err.max() < ASYNC_MAX_M):
+        raise RuntimeError("async keyframe jobs outside the bars against sync mode")
+    # the pipelined path's K2 input: its densest motion-model search mask
+    record, tagged, masks = matcher_recorder({"match_previous"}, densest=True)
+    tr = build_tracker(seq, device)
+    tr.pipelined = True
+    with mock.patch.object(matching, "hamming_match", record), \
+            mock.patch.object(tracking, "match_previous",
+                              tagged("match_previous", tracking.match_previous)):
+        for i in range(6):
+            tr.process_stereo(seq.imgs_l[i], seq.imgs_r[i], seq.ts[i])
+        tr.flush()
+    sync()
+    dq, dt, mask, _ = masks["match_previous"]
+    log(f"[k2] pipelined path mask match_previous (densest): shape={tuple(mask.shape)} "
+        f"density={float(mask.float().mean())!r}")
+    _k2_compare("pipelined match_previous", dq, dt, mask)
+    return counts
+
+
+def fisheye_settings():
+    from orb_slam3_vio_fixes_tpu_torch.io import settings
+    from orb_slam3_vio_fixes_tpu_torch.sensors import Sensor
+
+    return settings.load_settings(FISHEYE_CONFIG, Sensor.IMU_STEREO)
+
+
+def fisheye_scenario(n_frames: int = FISHEYE_FRAMES):
+    """(frames, ts, t_wc, depth0) of phase 19: bench.py's stereo-inertial
+    trajectory (seed 11) as camera 1's, each camera rendered through its
+    KannalaBrandt8 model from configs/TUM-VI.yaml at 512x512 (camera 2 at
+    T_c1_c2), the IMU samples moved to TUM-VI's body frame (T_b_c1, with the
+    lever arm of the constant yaw rate) plus the yaml's white noise at its
+    rate; depth0 is frame 0's left z-buffer. Each frame is (left, right,
+    timestamp, IMU samples since the previous frame)."""
+    from orb_slam3_vio_fixes_tpu_torch.io import synthetic
+    from orb_slam3_vio_fixes_tpu_torch.utils.cameras import project
+
+    st = fisheye_settings()
+    h, w = st.height, st.width
+    rng = np.random.default_rng(11)
+    # a room-scale world, as tests/test_fisheye_stereo.py's: with a 0.10 m
+    # baseline the parallax gate (cos < 0.9998) keeps depths below ~5 m
+    world = synthetic.make_world(rng, n_points=FISHEYE_POINTS, extent=4.0,
+                                 depth_range=(2.0, 7.0))
+    # the trajectory and its camera-frame IMU (tiny images: they are not used)
+    s = synthetic.make_stereo_inertial_sequence(rng, n_frames=n_frames, h=8, w=8,
+                                                fx=st.cam1.fx, baseline=0.11, world=world,
+                                                imu_hz=st.imu_freq, accel_amp=0.6)
+    R_bc, t_bc = st.T_bc[:3, :3], st.T_bc[:3, 3]
+    r_c = -R_bc.T @ t_bc                       # the body origin in camera 1's frame
+    acc, gyro = s.imu[..., :3].astype(np.float64), s.imu[..., 3:6].astype(np.float64)
+    acc = acc + np.cross(gyro, np.cross(gyro, r_c))
+    noise = np.random.default_rng(12)
+    rate = np.sqrt(st.imu_freq)
+    imu = s.imu.copy()
+    imu[..., :3] = acc @ R_bc.T + noise.normal(0, st.noise_acc * rate, acc.shape)
+    imu[..., 3:6] = gyro @ R_bc.T + noise.normal(0, st.noise_gyro * rate, gyro.shape)
+    R_12, t_12 = st.T_c1_c2[:3, :3], st.T_c1_c2[:3, 3]
+
+    def view(cam, R_wc, C):
+        K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]], np.float32)
+        R_cw = R_wc.T.astype(np.float32)
+        return K, R_cw, (-R_cw @ C).astype(np.float32), lambda Xc: project(
+            cam, torch.as_tensor(Xc, dtype=torch.float32)).numpy()
+
+    frames, depth0 = [], None
+    for i in range(n_frames):
+        K1, R1, t1, p1 = view(st.cam1, s.R_wc[i], s.t_wc[i])
+        K2, R2, t2, p2 = view(st.cam2, s.R_wc[i] @ R_12, s.t_wc[i] + s.R_wc[i] @ t_12)
+        left = synthetic.render(world, K1, R1, t1, h, w, return_depth=i == 0, project_fn=p1)
+        if i == 0:
+            left, depth0 = left
+        right = synthetic.render(world, K2, R2, t2, h, w, project_fn=p2)
+        frames.append((quantize(left), quantize(right), s.ts[i],
+                       imu[i - 1] if i > 0 else np.zeros((0, 7), np.float32)))
+    return frames, s.ts, s.t_wc, depth0
+
+
+def fisheye_frame0(frames, device):
+    """Frame 0 through the port's two-camera build with TUM-VI.yaml's rig."""
+    from orb_slam3_vio_fixes_tpu_torch.frontend import frame as frame_mod
+    from orb_slam3_vio_fixes_tpu_torch.ops import orb
+
+    st = fisheye_settings()
+    T = torch.as_tensor(np.asarray(st.T_c1_c2, np.float32), device=device)
+    return frame_mod.build_fisheye_stereo_frame(
+        torch.as_tensor(frames[0][0], device=device), torch.as_tensor(frames[0][1], device=device),
+        torch.zeros((), device=device), st.cam1, st.cam2, T[:3, :3], T[:3, 3],
+        orb.ORBConfig(st.n_features, st.n_levels, st.scale_factor))
+
+
+def fisheye_frame_check(frames, depth0, device) -> None:
+    """Frame 0 through the port's two-camera build on the card: at least
+    FISHEYE_MIN_DEPTHS triangulated keypoints whose median relative depth
+    error against the z-buffer is below FISHEYE_DEPTH_REL."""
+    f = fisheye_frame0(frames, device)
+    depth, uv, valid = (x.cpu().numpy() for x in (f.depth, f.uv, f.valid))
+    has = valid & (depth > 0)
+    xi = np.clip(np.round(uv[:, 0]).astype(int), 0, depth0.shape[1] - 1)
+    yi = np.clip(np.round(uv[:, 1]).astype(int), 0, depth0.shape[0] - 1)
+    z = depth0[yi, xi]
+    ok = has & (z > 0)
+    rel = np.abs(depth[ok] - z[ok]) / z[ok]
+    med = float(np.median(rel)) if ok.any() else float("inf")
+    log(f"[fisheye] frame 0: triangulated={int(has.sum())} median_rel_depth_err={med!r} "
+        f"within_30pct={float((rel < 0.3).mean()) if ok.any() else 0.0!r}")
+    if has.sum() < FISHEYE_MIN_DEPTHS or not med < FISHEYE_DEPTH_REL:
+        raise RuntimeError(f"fisheye frame build: {int(has.sum())} depths, median relative "
+                           f"error {med}")
+
+
+def fisheye_path(device, card) -> dict:
+    """Phase 19: SLAMSystem from configs/TUM-VI.yaml (a KannalaBrandt8 rig,
+    tracked unrectified) in IMU_STEREO and STEREO on the fisheye scenario.
+    Gates: the frame-0 build check; per mode the final state OK, the ATE
+    within ATE_FACTOR x the JAX package's + ATE_SLACK_M, K1 once per frame
+    (B = 2 at 512x512) and K2 at least once per matcher call; K1 exact on
+    frame 0's atlas and K2 on frame 0's brute-force left-right mask.
+    Returns the launch counts per mode."""
+    from orb_slam3_vio_fixes_tpu_torch import kernels
+    from orb_slam3_vio_fixes_tpu_torch import system as sysm
+    from orb_slam3_vio_fixes_tpu_torch.ops import fast, matching
+    from orb_slam3_vio_fixes_tpu_torch.ops import image as image_ops
+
+    t0 = time.perf_counter()
+    frames, ts, t_wc, depth0 = fisheye_scenario()
+    log(f"[fisheye] {len(frames)} frames rendered at 512x512 in "
+        f"{time.perf_counter() - t0:.1f}s")
+    fisheye_frame_check(frames, depth0, device)
+    st = fisheye_settings()
+    counts = {}
+    for mode in FISHEYE_MODES:
+        slam = sysm.SLAMSystem(FISHEYE_CONFIG, getattr(sysm.Sensor, mode), device=device)
+        states = []
+        kernels.reset_launch_counts()
+        per_frame = track_facade(slam, frames, states)
+        counts[mode] = kernels.launch_counts()
+        tr = slam.tracker
+        rmse = trajectory_ate(ts, t_wc, tr, len(frames))
+        jax_ate = JAX_FISHEYE_ATE_M[mode]
+        bound_m = ATE_FACTOR * jax_ate + ATE_SLACK_M
+        n_ins = tr._kf_seq
+        min_calls = len(frames) + 2 * (len(frames) - 1) + 6 * n_ins
+        log(f"[fisheye] {mode}: state={tr.track_state} states_ok="
+            f"{sum(x == 'OK' for x in states)}/{len(states)} imu_ready="
+            f"{getattr(tr, 'imu_ready', None)} keyframes={len(tr.kf_order)} "
+            f"keyframe_inserts={n_ins} landmarks={tr.n_lm} ate_rmse_m={rmse!r} "
+            f"bound_m={bound_m!r} (jax {jax_ate!r}) launches={counts[mode]} "
+            f"min_matcher_calls={min_calls}")
+        log(f"[timing] {card}: fisheye {mode} {frame_stats(per_frame)}")
+        if tr.track_state != "OK" or not rmse <= bound_m:
+            raise RuntimeError(f"fisheye {mode}: state {tr.track_state}, ATE {rmse} m "
+                               f"(bound {bound_m} m)")
+        if counts[mode]["fast_score"] != len(frames) or counts[mode]["hamming_match"] < min_calls:
+            raise RuntimeError(f"fisheye {mode}: launches {counts[mode]} for {len(frames)} "
+                               f"frames, at least {min_calls} matcher calls")
+    # K1 at B = 2 on frame 0's 512x512 atlas; K2 on its brute-force mask
+    layout = image_ops.atlas_layout(st.height, st.width, st.n_levels, st.scale_factor,
+                                    align=35)
+    imgs = torch.as_tensor(np.stack(frames[0][:2]), device=device)
+    x = image_ops.build_pyramid_atlas(imgs, st.n_levels, st.scale_factor, layout)
+    got, ref = fast.fast_score_batch(x), fast.fast_score_plain(x)
+    sync()
+    n_bad = int((got != ref).sum())
+    log(f"[k1] fisheye frame 0 atlas {tuple(x.shape)}: mismatches={n_bad}")
+    if n_bad:
+        raise RuntimeError("K1 disagrees with its plain twin on the fisheye atlas")
+    record, tagged, masks = matcher_recorder({"fisheye"})
+    with mock.patch.object(matching, "hamming_match", record), \
+            mock.patch.object(matching, "match_descriptors",
+                              tagged("fisheye", matching.match_descriptors)):
+        fisheye_frame0(frames, device)
+    dq, dt, mask, _ = masks["fisheye"]
+    log(f"[k2] fisheye brute-force mask: shape={tuple(mask.shape)} "
+        f"density={float(mask.float().mean())!r}")
+    _k2_compare("fisheye brute force", dq, dt, mask)
+    return counts
+
+
+# Phases 7-19 run in worker processes, each its phases in this order, all at
+# once on the one card: every phase is host-bound (the device sits idle 0.91-
+# 0.94 of a frame, PERF.md section 5), so one process leaves 7 of the
+# machine's 8 cores and most of the card unused, and the phases one after the
+# other ran 1147-1450 s. Each worker is a fresh process, as the driver's and
+# phase_repeat's runs are. The kernel timings (phase 6) run after every
+# worker has ended, on a card that runs nothing else.
+WORKERS = (("si_loop",),
+           ("si_atlas", "mono_inertial"),
+           ("facade", "app"),
+           ("pipelined", "fisheye"),
+           ("stereo_inertial", "loop", "relocalization", "atlas", "mono"))
+
+
+def run_phases(names, card, report) -> None:
+    """Run the named phases in this process, each followed by a synchronise;
+    report(by_path, seconds) after each. by_path maps a path name to its K1 /
+    K2 launch counts (phases with several passes or modes give one entry
+    each)."""
+    device = torch.device("cuda")
+    made = {}
+
+    def get(key, make):
+        if key not in made:
+            made[key] = make()
+        return made[key]
+
+    def vocab():
+        from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary
+
+        def load():
+            v = vocabulary.default_vocabulary(device)
+            log(f"[vocab] {vocabulary.ASSET_DIR}/vocab_b10d5.npz words={v.n_words} "
+                f"nodes={tuple(v.nodes.shape)}")
+            return v
+        return get("vocab", load)
+
+    seq = lambda: get("seq", make_sequence)          # noqa: E731
+    facade = {}
+
+    def run_facade():
+        counts, facade["frame_s"] = facade_path(device, card)
+        return {f"facade_{mode.lower()}": c for mode, c in counts.items()}
+
+    def per_pass(name, out):
+        return {f"{name}_{label.lower()}": c for label, c in out.items()}
+
+    phases = {
+        "stereo_inertial": lambda: {"stereo_inertial": inertial_path(
+            make_inertial_sequence(), device, card)},
+        "loop": lambda: {"loop": loop_path(make_loop_sequence(), vocab(), device, card)},
+        "relocalization": lambda: {"relocalization": reloc_path(vocab(), device, card)},
+        "atlas": lambda: {"atlas": atlas_path(vocab(), device, card)},
+        "si_loop": lambda: {"si_loop": si_loop_path(vocab(), device, card)},
+        "si_atlas": lambda: {"si_atlas": si_atlas_path(vocab(), device, card)},
+        "facade": run_facade,
+        "app": lambda: {"app": app_path(device, card, facade["frame_s"])},
+        "mono": lambda: {"mono": mono_path(seq(), device, card)},
+        "mono_inertial": lambda: {"mono_inertial": mono_inertial_path(device, card)},
+        "pipelined": lambda: per_pass("pipelined", pipelined_path(seq(), device, card)),
+        "fisheye": lambda: per_pass("fisheye", fisheye_path(device, card)),
+    }
+    for name in names:
+        t = time.perf_counter()
+        by_path = phases[name]()
+        sync()
+        seconds = round(time.perf_counter() - t, 1)
+        log(f"[phase] {name} seconds={seconds}")
+        report(by_path, {name: seconds})
+
+
+def worker(names, card, results) -> None:
+    """A worker process's body: the named phases; each one's launch counts
+    and seconds go to the `results` queue. An exception ends the process
+    with a non-zero code."""
+    from orb_slam3_vio_fixes_tpu_torch import kernels
+    from orb_slam3_vio_fixes_tpu_torch.utils import determinism
+
+    determinism.enable()            # before any CUDA work
+    kernels.library()               # built by the parent
+    run_phases(names, card, lambda by_path, seconds: results.put((by_path, seconds)))
+    results.put(None)
+
+
+def run_workers(card, main_work):
+    """Start one process per WORKERS entry, run main_work() here meanwhile,
+    then collect the workers' counts and seconds. Fails (after stopping
+    every worker) if one exits non-zero or without its results."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=worker, args=(names, card, results))
+             for names in WORKERS]
+    by_path, phase_s = {}, {}
+    try:
+        for p in procs:
+            p.start()
+        main_work()
+        finished = 0
+        while finished < len(procs):
+            try:
+                got = results.get(timeout=10)
+            except queue.Empty:
+                # a worker that ended on an exception (its traceback is on
+                # stderr), or was killed, reports nothing more
+                failed = [(names, p.exitcode) for names, p in zip(WORKERS, procs)
+                          if p.exitcode not in (None, 0)]
+                if failed:
+                    raise RuntimeError(f"worker processes failed (phases, exit code): {failed}")
+                if all(p.exitcode == 0 for p in procs):
+                    raise RuntimeError("a worker ended without reporting its end")
+                continue
+            if got is None:
+                finished += 1
+            else:
+                by_path.update(got[0])
+                phase_s.update(got[1])
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join()
+    return by_path, phase_s
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     card = card_facts()
     from orb_slam3_vio_fixes_tpu_torch.utils import determinism
 
@@ -2077,51 +2521,34 @@ def main() -> int:
     sync()
     log(f"[build] {so.name} nvcc_seconds={nvcc_s:.2f} total={time.perf_counter() - t0:.2f}s")
 
-    seq = make_sequence()
-    k1 = check_k1(seq, device)
-    sync()
-    path_masks = capture_path_masks(seq, device)
-    k2 = check_k2(device, path_masks)
-    sync()
-    log(f"[k1] {k1}  [k2] {k2}")
+    here = {}
 
-    by_path = {}
-    phase_s = {}
-
-    def phase(name, fn, *args):
-        t = time.perf_counter()
-        by_path[name] = fn(*args)
+    def main_work():
+        seq = make_sequence()
+        k1 = check_k1(seq, device)
         sync()
-        phase_s[name] = round(time.perf_counter() - t, 1)
-        log(f"[phase] {name} seconds={phase_s[name]}")
+        path_masks = capture_path_masks(seq, device)
+        k2 = check_k2(device, path_masks)
+        sync()
+        log(f"[k1] {k1}  [k2] {k2}")
+        t = time.perf_counter()
+        counts = main_path(seq, device, card)
+        sync()
+        here.update(seq=seq, path_masks=path_masks, k1=k1, k2=k2, counts=counts,
+                    seconds=round(time.perf_counter() - t, 1))
+        log(f"[phase] stereo seconds={here['seconds']}")
 
-    # the counted pass gives the stereo path's fps too (the separate timing
-    # pass of earlier versions is cut to make room for phases 12-14)
-    phase("stereo", main_path, seq, device, card)
-    times = path_kernel_times(seq, device, path_masks, card)
+    t0 = time.perf_counter()
+    workers_by_path, workers_s = run_workers(card, main_work)
+    log(f"[phase] phases 5, 7-19 (in {len(WORKERS) + 1} processes) "
+        f"seconds={time.perf_counter() - t0:.1f}")
+    # phase 6 on a card that runs nothing else
+    times = path_kernel_times(here["seq"], device, here["path_masks"], card)
     sync()
-    vi_seq = make_inertial_sequence()
-    phase("stereo_inertial", inertial_path, vi_seq, device, card)
-    del vi_seq
-
-    from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary
-
-    vocab = vocabulary.default_vocabulary(device)
-    log(f"[vocab] {vocabulary.ASSET_DIR}/vocab_b10d5.npz words={vocab.n_words} "
-        f"nodes={tuple(vocab.nodes.shape)}")
-    phase("loop", loop_path, make_loop_sequence(), vocab, device, card)
-    phase("relocalization", reloc_path, vocab, device, card)
-    phase("atlas", atlas_path, vocab, device, card)
-    phase("si_loop", si_loop_path, vocab, device, card)
-    phase("si_atlas", si_atlas_path, vocab, device, card)
-    del vocab
-    facade_counts, facade_frame_s = facade_path(device, card)
-    for mode, counts in facade_counts.items():
-        by_path[f"facade_{mode.lower()}"] = counts
-    phase("app", app_path, device, card, facade_frame_s)
-    phase("mono", mono_path, seq, device, card)
-    phase("mono_inertial", mono_inertial_path, device, card)
+    by_path = {"stereo": here["counts"], **workers_by_path}
+    phase_s = {"stereo": here["seconds"], **workers_s}
     log(f"[phase] seconds={phase_s}")
+    log(f"[script] seconds={time.perf_counter() - t_start:.1f}")
     counts = by_path["stereo"]
 
     def numbers(label):
@@ -2133,12 +2560,12 @@ def main() -> int:
     report = {"kernels": [
         {"name": "fast_score", "route": "cuda", "source": src + "fast_score.cu",
          "replaces": "orb_slam3_vio_fixes_tpu/ops/pallas_kernels.py:63",
-         "launches": counts["fast_score"], **k1,
+         "launches": counts["fast_score"], **here["k1"],
          "launches_by_path": {k: c["fast_score"] for k, c in by_path.items()},
          **numbers("fast_score 2x2380x752")},
         {"name": "hamming_match", "route": "cuda", "source": src + "hamming.cu",
          "replaces": "orb_slam3_vio_fixes_tpu/ops/matching.py:39",
-         "launches": counts["hamming_match"], **k2,
+         "launches": counts["hamming_match"], **here["k2"],
          "launches_by_path": {k: c["hamming_match"] for k, c in by_path.items()},
          **numbers("hamming_match 1024x1024 cols")},
     ]}

@@ -3,6 +3,4 @@ directory), run as modules from the repository root, e.g.
 
     python -m orb_slam3_vio_fixes_tpu_torch.examples.stereo_inertial_vio \
         settings.yaml seq_dir out.txt --vio-config cfg.json
-
-The fisheye app (tum_vi_stereo_inertial) waits for the KannalaBrandt8 slice.
 """

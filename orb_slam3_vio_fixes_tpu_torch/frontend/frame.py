@@ -1,6 +1,7 @@
-"""Stereo, RGB-D and monocular frame construction (port of
-orb_slam3_vio_fixes_tpu/frontend/frame.py: FrameData, sad_subpixel,
-build_stereo_frame_impl, build_rgbd_frame, build_mono_frame)."""
+"""Stereo, two-camera fisheye, RGB-D and monocular frame construction (port
+of orb_slam3_vio_fixes_tpu/frontend/frame.py: FrameData, sad_subpixel,
+build_stereo_frame_impl, build_fisheye_stereo_frame, build_rgbd_frame,
+build_mono_frame)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import torch.nn.functional as F
 
 from orb_slam3_vio_fixes_tpu_torch.ops import image as image_ops
 from orb_slam3_vio_fixes_tpu_torch.ops import matching, orb
-from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera
+from orb_slam3_vio_fixes_tpu_torch.ops import triangulate as tri
+from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera, project, unproject
 
 
 class FrameData(NamedTuple):
@@ -115,6 +117,53 @@ def build_stereo_frame_impl(img_l: torch.Tensor, img_r: torch.Tensor,
     return FrameData(uv=fl.uv, ur=torch.where(disp > 0, ur, torch.full_like(ur, -1.0)),
                      depth=depth, octave=fl.octave, angle=fl.angle,
                      desc=fl.desc, valid=fl.valid, ts=ts)
+
+
+def build_fisheye_stereo_frame(img_l: torch.Tensor, img_r: torch.Tensor,
+                               ts: torch.Tensor, cam1: Camera, cam2: Camera,
+                               R_12: torch.Tensor, t_12: torch.Tensor,
+                               cfg: orb.ORBConfig) -> FrameData:
+    """Two-camera (KannalaBrandt8) stereo: ORB on both eyes (one B = 2 atlas
+    through K1), brute-force mutual matching with ratio 0.7 (K2 over every
+    valid pair), then midpoint triangulation of the two unprojected rays.
+    A match keeps its depth when the rays' parallax cosine is below 0.9998,
+    the point lies in front of both cameras and both reprojection errors
+    pass the per-octave chi2 gate (5.991). T_c1_c2 = (R_12, t_12) maps
+    camera-2 coordinates into camera 1's. `depth` holds the left camera's z;
+    `ur` stays -1, so pose optimisation uses monocular residuals."""
+    img_l = to_f32(img_l)
+    img_r = to_f32(img_r)
+    fl, fr = orb.extract_pair(img_l, img_r, cfg)
+    m = matching.match_descriptors(fl.desc, fl.valid, fr.desc, fr.valid, ratio=0.7,
+                                   max_dist=matching.TH_HIGH, mutual=True)
+    n = fl.uv.shape[0]
+    ridx = m.idx.to(torch.int64).clamp(0, fr.uv.shape[0] - 1)
+    uv2 = fr.uv[ridx]
+    oct2 = fr.octave[ridx]
+    ray1 = unproject(cam1, fl.uv)
+    ray2 = unproject(cam2, uv2)
+    R_21 = R_12.T
+    t_21 = -R_12.T @ t_12
+    eye = torch.eye(3, device=ray1.device).expand(n, 3, 3)
+    Xc1 = tri.triangulate_midpoint(eye, torch.zeros_like(ray1), R_21.expand(n, 3, 3),
+                                   t_21.expand(n, 3), ray1, ray2)
+    Xc2 = Xc1 @ R_21.T + t_21
+    r1n = ray1 / torch.linalg.norm(ray1, dim=-1, keepdim=True)
+    r2w = ray2 @ R_12.T                 # the right ray in camera 1's frame
+    r2n = r2w / torch.linalg.norm(r2w, dim=-1, keepdim=True)
+    cos_par = (r1n * r2n).sum(-1)
+    sf = image_ops.scale_factors(cfg.n_levels, cfg.scale, device=ray1.device)
+    sigma2 = sf * sf
+    s21 = sigma2[fl.octave.to(torch.int64).clamp(0, cfg.n_levels - 1)]
+    s22 = sigma2[oct2.to(torch.int64).clamp(0, cfg.n_levels - 1)]
+    e1 = project(cam1, Xc1) - fl.uv
+    e2 = project(cam2, Xc2) - uv2
+    ok = ((m.idx >= 0) & fl.valid & (Xc1[:, 2] > 0.01) & (Xc2[:, 2] > 0.01)
+          & (cos_par < 0.9998) & ((e1 * e1).sum(-1) / s21 < 5.991)
+          & ((e2 * e2).sum(-1) / s22 < 5.991))
+    neg = torch.full((n,), -1.0, device=ray1.device)
+    return FrameData(uv=fl.uv, ur=neg, depth=torch.where(ok, Xc1[:, 2], neg),
+                     octave=fl.octave, angle=fl.angle, desc=fl.desc, valid=fl.valid, ts=ts)
 
 
 def _extract_one(img: torch.Tensor, cfg: orb.ORBConfig) -> orb.Features:

@@ -246,11 +246,11 @@ class StereoInertialTracker(trk.StereoTracker):
     def __init__(self, cam: Camera, bf: float, calib: pre.ImuCalib,
                  cfg: trk.TrackerConfig = trk.TrackerConfig(),
                  icfg: InertialConfig = InertialConfig(), *, device,
-                 loop_closer=None, relocalizer=None, atlas=None):
+                 loop_closer=None, relocalizer=None, atlas=None, rig=None):
         if getattr(loop_closer, "mesh", None) is not None:
             raise NotImplementedError("the landmark-sharded VI BA (mesh) is not ported yet")
         super().__init__(cam, bf, cfg, device=device, loop_closer=loop_closer,
-                         relocalizer=relocalizer, atlas=atlas)
+                         relocalizer=relocalizer, atlas=atlas, rig=rig)
         self.calib = calib
         self.icfg = icfg
         self.imu_ready = False
@@ -542,6 +542,7 @@ class StereoInertialTracker(trk.StereoTracker):
     def _reset_active_map_bad_imu(self):
         """Drop the active map and restart (its scale and gravity are not to
         be trusted, so it is not kept)."""
+        self._kf_jobs.clear()       # pending stages name dying slots
         self._freeze_trajectory()
         self.state = ms.empty(self.cfg.map, self.device)
         self.n_kf = 0
@@ -574,6 +575,8 @@ class StereoInertialTracker(trk.StereoTracker):
         st.kf_ba[kf_id] = self.body.ba
 
     def _insert_keyframe_inertial(self, frame, R, t, cur_obs, ts):
+        # the previous keyframe's jobs land before the slot is peeked
+        self._drain_kf_jobs()
         if self.t_first_kf is None:
             # the first keyframe after relocalising into a loaded map starts
             # the IMU chain: no window leads to it

@@ -2,32 +2,42 @@
 
 Device functions (frame matching, pose optimisation, keyframe insertion,
 triangulation/fusion, local BA) take and return tensors; `StereoTracker` is
-the host state machine in SYNC mode: every frame's decisions complete before
-the next frame starts (the order the reference's pipelined modes are defined
-against). Its subclass hooks (`_can_cull`, `_filter_culls`, `_on_culled`,
-`_peek_kf_slot`, `_freeze_trajectory`) carry the stereo-inertial tracker of
-frontend/inertial_tracking.py. With a `LoopCloser`, a `Relocalizer` and an
-`Atlas` (frontend/loop_closing.py, frontend/relocalization.py,
-slam_map/atlas.py) it relocalises a lost track, spawns a new map after
-`max_lost_frames`, corrects loops and merges maps. `process_rgbd` is the
-RGB-D entry; `localization_only` tracks without inserting keyframes. Not
-ported yet: software pipelining / speculation, asynchronous keyframe jobs,
-the fisheye rig and the monocular entries.
+the host state machine. In sync mode every frame's decisions complete
+before the next frame starts. With `pipelined` set, each frame's tracking
+step is dispatched before the previous frame's decisions run (speculation):
+the decisions run in the same order and give the same trajectory, only the
+per-call return value lags one frame. With `async_kf` set, the keyframe
+stages after creation (local BA, culling, loop closing and the merge) run
+as jobs, one per later frame. Its subclass hooks (`_can_cull`,
+`_filter_culls`, `_on_culled`, `_peek_kf_slot`, `_freeze_trajectory`) carry
+the stereo-inertial tracker of frontend/inertial_tracking.py and the
+monocular ones of frontend/mono_tracking.py. With a `LoopCloser`, a
+`Relocalizer` and an `Atlas` (frontend/loop_closing.py,
+frontend/relocalization.py, slam_map/atlas.py) it relocalises a lost track,
+spawns a new map after `max_lost_frames`, corrects loops and merges maps.
+`process_rgbd` is the RGB-D entry; `localization_only` tracks without
+inserting keyframes; `rig=` takes a two-camera KannalaBrandt8 rig, whose
+frames are built by ray triangulation (frontend/frame.py).
 
 The map is updated in place (slam_map/map_state.py); the tracker keeps
-clones of any row it holds across a map write.
+clones of any row it holds across a map write, and keys a speculative step
+on the write versions of the tensors it read.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from collections import deque
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from orb_slam3_vio_fixes_tpu_torch.frontend import local_mapping as lm_mod
-from orb_slam3_vio_fixes_tpu_torch.frontend.frame import (FrameData, build_rgbd_frame,
+from orb_slam3_vio_fixes_tpu_torch.frontend.frame import (FrameData,
+                                                       build_fisheye_stereo_frame,
+                                                       build_rgbd_frame,
                                                        build_stereo_frame_impl)
 from orb_slam3_vio_fixes_tpu_torch.ops import image as image_ops
 from orb_slam3_vio_fixes_tpu_torch.ops import matching, orb
@@ -126,11 +136,14 @@ def _packed(R2, t2, n_m, n_inl2, frame: FrameData, cur_obs, cam: Camera, bf: flo
 def track_step_impl(state, prev_obs, prev_octave, prev_angle, R_prev, t_prev,
                     dR_vel, dt_vel, frame: FrameData, window_kfs, cam: Camera,
                     bf: float, th_narrow: float, th_wide: float, th_local: float,
-                    cfg: TrackerConfig, has_vel: bool = False):
+                    cfg: TrackerConfig, has_vel: bool = False,
+                    device_retry: bool = False):
     """The per-frame OK path: constant-velocity prediction, motion-model
-    matching (retried with the wide radius when < 20 matches: a host branch
-    on one synced count, where the reference used lax.cond), motion-only
-    pose opt, local-map tracking, velocity candidate.
+    matching (retried with the wide radius when < 20 matches), motion-only
+    pose opt, local-map tracking, velocity candidate. The retry is a host
+    branch on one synced count; with `device_retry` both radii run and the
+    device selects, as the reference's lax.cond, so that nothing waits for
+    the device (the pipelined tracker).
 
     Returns (R2, t2, cur_obs, packed, R_pred, t_pred, dR_new, dt_new)."""
     if has_vel:
@@ -140,7 +153,13 @@ def track_step_impl(state, prev_obs, prev_octave, prev_angle, R_prev, t_prev,
         R_pred, t_pred = R_prev, t_prev
     cur_obs, n_m = match_previous(state, prev_obs, prev_octave, prev_angle,
                                   R_pred, t_pred, frame, cam, bf, th_narrow, cfg)
-    if int(n_m) < 20:
+    if device_retry:
+        obs_w, n_w = match_previous(state, prev_obs, prev_octave, prev_angle,
+                                    R_pred, t_pred, frame, cam, bf, th_wide, cfg)
+        wide = n_m < 20
+        cur_obs = torch.where(wide, obs_w, cur_obs)
+        n_m = torch.where(wide, n_w, n_m)
+    elif int(n_m) < 20:
         cur_obs, n_m = match_previous(state, prev_obs, prev_octave, prev_angle,
                                       R_pred, t_pred, frame, cam, bf, th_wide, cfg)
     R1, t1, cur_obs, _ = pose_opt_from_obs(state, R_pred, t_pred, frame, cur_obs,
@@ -408,18 +427,61 @@ class TrackState:
     LOST = "LOST"
 
 
+class HostPull:
+    """A device tensor's copy into pinned host memory, enqueued when the
+    tensor is made: `numpy()` waits for that copy alone, not for the work
+    queued behind it (the next frame's speculative step)."""
+
+    def __init__(self, x: torch.Tensor):
+        self.host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        self.host.copy_(x, non_blocking=True)
+        self.done = torch.cuda.Event()
+        self.done.record()
+
+    def numpy(self) -> np.ndarray:
+        self.done.synchronize()
+        return self.host.numpy()
+
+
+def pull(x) -> np.ndarray:
+    """Host copy of a device tensor or of a started `HostPull`."""
+    return x.numpy() if isinstance(x, HostPull) else x.cpu().numpy()
+
+
+class TrackInputs(NamedTuple):
+    """What one tracking step read: the objects, the write versions of their
+    tensors (PyTorch bumps a tensor's version at every in-place write, and
+    the map is written in place), and the host-side scalars."""
+
+    objs: tuple
+    versions: tuple
+    scalars: tuple
+
+    def same(self, o: "TrackInputs") -> bool:
+        return (len(self.objs) == len(o.objs)
+                and all(a is b for a, b in zip(self.objs, o.objs))
+                and self.versions == o.versions and self.scalars == o.scalars)
+
+
 class StereoTracker:
-    """Host orchestrator for stereo SLAM in sync mode: build frame ->
-    motion-model match -> pose opt -> local-map track -> keyframe decision ->
-    (keyframe insert + triangulation + fusion + local BA + culling)."""
+    """Host orchestrator for stereo SLAM: build frame -> motion-model match ->
+    pose opt -> local-map track -> keyframe decision -> (keyframe insert +
+    triangulation + fusion + local BA + culling). `rig` = (cam2, R_12, t_12),
+    T_c1_c2 mapping camera-2 coordinates into camera 1's, selects the
+    two-camera (KannalaBrandt8) frame build; None is rectified stereo."""
 
     def __init__(self, cam: Camera, bf: float, cfg: TrackerConfig = TrackerConfig(),
-                 *, device, loop_closer=None, relocalizer=None, atlas=None):
+                 *, device, loop_closer=None, relocalizer=None, atlas=None, rig=None):
         ba_core.set_full_f32()
         self.device = torch.device(device)
         self.cam = cam
         self.bf = f32(bf)
         self.cfg = cfg
+        self.rig = None
+        if rig is not None:
+            cam2, R_12, t_12 = rig
+            self.rig = (cam2, torch.as_tensor(R_12, dtype=torch.float32, device=self.device),
+                        torch.as_tensor(t_12, dtype=torch.float32, device=self.device))
         self.loop_closer = loop_closer
         self.relocalizer = relocalizer
         self.atlas = atlas
@@ -455,6 +517,20 @@ class StereoTracker:
         self._kf_seq = 0
         self._window_key = None
         self._window = None
+        # software pipelining: each frame's decisions wait until the next
+        # frame's step is dispatched; flush() finalises the frame in flight
+        self.pipelined = False
+        self._pending = None
+        self._last_pose = (np.eye(3), np.zeros(3))
+        self.spec_dispatched = 0            # speculative steps dispatched
+        self.spec_reused = 0                # ... whose inputs held
+        # asynchronous keyframe stages: one job per frame gap
+        self.async_kf = False
+        self._kf_jobs = deque()
+        # a loop correction inside a job moves the world under every pose in
+        # flight: the composed delta D = T_rw_old^-1 T_rw_new (apply as
+        # T_cw_new = T_cw_old D), cleared at each dispatch
+        self._corr_delta = None
 
     # -- per-frame entry points --
 
@@ -494,7 +570,12 @@ class StereoTracker:
         return torch.full((), ts, dtype=torch.float32, device=self.device)
 
     def _build_stereo(self, img_l, img_r, ts: float) -> FrameData:
+        """Rectified row matching, or ray triangulation with a rig."""
         imgs = self._upload_pair(img_l, img_r)
+        if self.rig is not None:
+            cam2, R_12, t_12 = self.rig
+            return build_fisheye_stereo_frame(imgs[0], imgs[1], self._ts(ts), self.cam,
+                                              cam2, R_12, t_12, self.cfg.orb)
         return build_stereo_frame_impl(imgs[0], imgs[1], self._ts(ts), self.cam, self.bf,
                                        self.cfg.orb)
 
@@ -537,8 +618,64 @@ class StereoTracker:
             self._window_key = recent
         return self._window
 
+    def flush(self, drain_jobs: bool = True):
+        """Finalise the pipelined frame in flight; with `drain_jobs` (the end
+        of a run) also run every pending keyframe job. process_frame passes
+        False: mid-stream, the jobs run one per frame gap."""
+        if self._pending is not None:
+            p, self._pending = self._pending, None
+            self._finalize_track(*p)
+        if drain_jobs:
+            self._drain_kf_jobs()
+
+    def _track_inputs(self, state, prev_obs, prev_octave, prev_angle, R, t, vel,
+                      window, th_local: float) -> TrackInputs:
+        objs = (state, prev_obs, prev_octave, prev_angle, R, t,
+                *(vel if vel is not None else (None, None)), window)
+        tensors = [x for x in (*state, *objs[1:]) if isinstance(x, torch.Tensor)]
+        return TrackInputs(objs, tuple(x._version for x in tensors),
+                           (self.match_radius, th_local, self._corr_epoch))
+
+    def _dispatch_track(self, frame: FrameData, state, prev_obs, prev_octave,
+                        prev_angle, R, t, vel, window, th_local: float):
+        """Enqueue one tracking step. Returns (inputs, outputs): `inputs`
+        lets a speculative step be checked later against what the decision
+        order requires. When pipelined, the decision vector's copy to the
+        host starts here."""
+        has_vel = vel is not None
+        dR, dt = vel if has_vel else (None, None)
+        inputs = self._track_inputs(state, prev_obs, prev_octave, prev_angle, R, t, vel,
+                                    window, th_local)
+        outs = track_step_impl(
+            state, prev_obs, prev_octave, prev_angle, R, t, dR, dt, frame, window,
+            self.cam, self.bf, self.match_radius[0], self.match_radius[1], th_local,
+            self.cfg, has_vel=has_vel, device_retry=self.pipelined)
+        if self.pipelined and self.device.type == "cuda":
+            outs = (*outs[:3], HostPull(outs[3]), *outs[4:])
+        return inputs, outs
+
+    def _spec_inputs(self):
+        """The next frame's step inputs as the frame in flight leaves them if
+        it needs no other decision: its pose, bindings and velocity
+        candidate, the current map and window, the next search radius."""
+        p = self._pending
+        return (self.state, p[4], p[0].octave, p[0].angle, p[2], p[3], p[10],
+                self._local_window(),
+                self.th_local_base if self.frames_since_reloc >= 1 else 2.0)
+
     def process_frame(self, frame: FrameData, ts: float):
         cfg = self.cfg
+        spec = None
+        if self.pipelined and self._pending is not None and self.track_state == TrackState.OK:
+            # speculative dispatch: this frame's step goes on the queue
+            # before the frame in flight is finalised, from that frame's
+            # device outputs; it is kept only if the decisions below leave
+            # its inputs as they were
+            spec = self._dispatch_track(frame, *self._spec_inputs())
+            self.spec_dispatched += 1
+        self.flush(drain_jobs=False)
+        # from here self.R / self.t / self.state agree again
+        self._corr_delta = None
         if self.track_state == TrackState.NOT_INITIALIZED:
             self._initialize(frame)
             self._record(ts)
@@ -550,14 +687,27 @@ class StereoTracker:
         # is the recovery path, as in the reference
         self.frames_since_reloc += 1
         window = self._local_window()
-        has_vel = self.vel is not None
-        dR, dt = self.vel if has_vel else (None, None)
-        outs = track_step_impl(
-            self.state, self.prev_obs, self.prev_octave, self.prev_angle,
-            self.R, self.t, dR, dt, frame, window, self.cam, self.bf,
-            self.match_radius[0], self.match_radius[1], self._local_search_th(),
-            cfg, has_vel=has_vel)
-        return self._finalize_track(frame, ts, *outs, window)
+        th_local = self._local_search_th()
+        actual = self._track_inputs(self.state, self.prev_obs, self.prev_octave,
+                                    self.prev_angle, self.R, self.t, self.vel, window,
+                                    th_local)
+        if spec is not None and spec[0].same(actual):
+            outs = spec[1]
+            self.spec_reused += 1
+        else:
+            _, outs = self._dispatch_track(frame, self.state, self.prev_obs,
+                                           self.prev_octave, self.prev_angle, self.R,
+                                           self.t, self.vel, window, th_local)
+        R2, t2, cur_obs, packed, R_pred, t_pred, dR_new, dt_new = outs
+        pending = (frame, ts, R2, t2, cur_obs, packed, R_pred, t_pred, window,
+                   self._corr_epoch, (dR_new, dt_new))
+        if self.pipelined:
+            self._pending = pending
+            self._run_kf_job()
+            return self._last_pose + (self.track_state,)
+        out = self._finalize_track(*pending)
+        self._run_kf_job()
+        return out
 
     def _recover(self, frame, ts: float):
         """Lost: relocalise against the keyframe database; after
@@ -583,9 +733,27 @@ class StereoTracker:
         return self.R.cpu().numpy(), self.t.cpu().numpy(), self.track_state
 
     def _finalize_track(self, frame, ts, R2, t2, cur_obs, packed, R_pred, t_pred,
-                        dR_new, dt_new, window):
+                        window, dispatch_epoch=None, vel_cand=None):
+        """Pull the step's decision vector and run the frame's decisions:
+        fallback, lost transition, velocity, keyframe insertion, record."""
         cfg = self.cfg
-        packed = packed.cpu().numpy()       # the one device->host pull
+        packed = pull(packed)               # the one device->host pull
+        corrected_in_flight = False
+        if (dispatch_epoch is not None and self._corr_epoch != dispatch_epoch
+                and self._corr_delta is not None):
+            # a loop correction ran in a job after this frame's dispatch: carry
+            # the frame's poses into the corrected world
+            Rd, td = self._corr_delta
+            self._corr_delta = None
+            Rdt = torch.as_tensor(Rd, dtype=torch.float32, device=self.device)
+            tdt = torch.as_tensor(td, dtype=torch.float32, device=self.device)
+            t2, R2 = R2 @ tdt + t2, R2 @ Rdt
+            t_pred, R_pred = R_pred @ tdt + t_pred, R_pred @ Rdt
+            Rp = packed[:9].reshape(3, 3)
+            packed = packed.copy()
+            packed[9:12] = Rp @ td + packed[9:12]
+            packed[:9] = (Rp @ Rd).reshape(-1)
+            corrected_in_flight = True
         self._frame_stats = packed[12:].astype(np.int64)
         n_inl2_i = int(self._frame_stats[1])
         self.last_n_inliers = n_inl2_i
@@ -603,14 +771,17 @@ class StereoTracker:
             self.track_state = TrackState.RECENTLY_LOST
             self._set_frame(frame, R_pred, t_pred, cur_obs)
             self._record(ts)
-            return self.R.cpu().numpy(), self.t.cpu().numpy(), self.track_state
+            self._last_pose = (self.R.cpu().numpy(), self.t.cpu().numpy())
+            return self._last_pose + (self.track_state,)
         self.track_state = TrackState.OK
         self.lost_frames = 0
-        if fell_back:
+        if corrected_in_flight:
+            self.vel = None
+        elif fell_back or vel_cand is None:
             dR = lie.so3_normalize(R2 @ self.R.T)
             self.vel = (dR, t2 - dR @ self.t)
         else:
-            self.vel = (dR_new, dt_new)
+            self.vel = vel_cand
         self._set_frame(frame, R2, t2, cur_obs)
         self.frames_since_kf += 1
         epoch = self._corr_epoch
@@ -620,10 +791,12 @@ class StereoTracker:
             # a loop correction re-based the tracker onto the corrected map
             R_np = self.R.cpu().numpy().astype(np.float64)
             t_np = self.t.cpu().numpy().astype(np.float64)
+            self.vel = None
         else:
             R_np = packed[:9].reshape(3, 3).astype(np.float64)
             t_np = packed[9:12].astype(np.float64)
         self._record_np(ts, R_np, t_np)
+        self._last_pose = (R_np, t_np)
         return R_np, t_np, self.track_state
 
     # -- internals --
@@ -645,6 +818,7 @@ class StereoTracker:
     @property
     def trajectory(self):
         """Per-frame (ts, R_cw, t_cw) through the current keyframe poses."""
+        self.flush()            # the frame in flight is recorded too
         if not self.traj:
             return []
         kf_R = self.state.kf_R.cpu().numpy().astype(np.float64)
@@ -658,6 +832,7 @@ class StereoTracker:
         return out
 
     def keyframe_trajectory(self):
+        self.flush()
         kf_R = self.state.kf_R.cpu().numpy()
         kf_t = self.state.kf_t.cpu().numpy()
         kf_ts = self.state.kf_ts.cpu().numpy()
@@ -666,6 +841,7 @@ class StereoTracker:
     def _freeze_trajectory(self):
         """Make every keyframe-relative trajectory entry absolute; called
         before the active map and its keyframe slots go away (reset)."""
+        self.flush()            # the frame in flight refers to this map's slots
         self.ref_kf = -1
         if not any(e[1] >= 0 for e in self.traj):
             return
@@ -760,9 +936,23 @@ class StereoTracker:
             self.atlas.map_cfg = new_mc
 
     def _insert_keyframe(self, frame, R, t, cur_obs):
-        """Keyframe insertion with every local-mapping stage inline:
-        create + spawn + triangulate + fuse, local BA, culling, bookkeeping.
-        Returns the keyframe's slot, moved by an Atlas merge if one ran."""
+        """Keyframe insertion: create + spawn + triangulate + fuse, then local
+        BA, culling and the finalize stage (loop closing, bookkeeping, the
+        Atlas merge). Sync mode runs them inline; with `async_kf` only the
+        creation is inline and the three stages become jobs, run one per
+        later frame. Returns the keyframe's slot, moved by an Atlas merge if
+        one ran inline."""
+        # the previous keyframe's stages land before this one is created
+        epoch = self._corr_epoch
+        self._drain_kf_jobs()
+        if self._corr_epoch != epoch and self._corr_delta is not None:
+            # a correction ran in the drain: carry the caller's pose across
+            Rd, td = self._corr_delta
+            self._corr_delta = None
+            Rdt = torch.as_tensor(Rd, dtype=torch.float32, device=self.device)
+            tdt = torch.as_tensor(td, dtype=torch.float32, device=self.device)
+            t, R = R @ tdt + t, R @ Rdt
+            self.vel = None
         self._maybe_grow()
         kf_id = self._peek_kf_slot()
         if self._free_kf_slots and kf_id == self._free_kf_slots[0]:
@@ -780,10 +970,27 @@ class StereoTracker:
         self.kf_order.append(kf_id)
         self.frames_since_kf = 0
         self._kf_seq += 1
+        seq = self._kf_seq
         self._on_keyframe_created(kf_id)
+        if self.async_kf:
+            self._refresh_ref_pose(kf_id, (R.cpu().numpy().astype(np.float64),
+                                           t.cpu().numpy().astype(np.float64)))
+            self._kf_jobs.append(functools.partial(self._kf_stage_ba, kf_id))
+            self._kf_jobs.append(functools.partial(self._kf_stage_cull, kf_id, seq))
+            self._kf_jobs.append(functools.partial(self._kf_stage_finalize, kf_id))
+            return kf_id
         self._kf_stage_ba(kf_id)
-        self._kf_stage_cull(kf_id, self._kf_seq)
+        self._kf_stage_cull(kf_id, seq)
         return self._kf_stage_finalize(kf_id)
+
+    def _run_kf_job(self):
+        """One pending keyframe job (called once per frame)."""
+        if self._kf_jobs:
+            self._kf_jobs.popleft()()
+
+    def _drain_kf_jobs(self):
+        while self._kf_jobs:
+            self._kf_jobs.popleft()()
 
     def _on_keyframe_created(self, kf_id: int):
         """Subclass hook: stamp per-keyframe side state onto the new slot
@@ -853,8 +1060,33 @@ class StereoTracker:
         self._loop_weld_ba(kf_id)
         self._post_loop_gba(kf_id)
         self._corr_epoch += 1
-        self.R = self.state.kf_R[kf_id].clone()
-        self.t = self.state.kf_t[kf_id].clone()
+        if self.ref_kf >= 0:
+            # the world-to-world delta of this correction, for the poses in
+            # flight: D = T_rw_old^-1 T_rw_new of the reference keyframe
+            R_rw, t_rw = self._ref_pose
+            new = torch.cat([self.state.kf_R[self.ref_kf].reshape(-1),
+                             self.state.kf_t[self.ref_kf]]).cpu().numpy().astype(np.float64)
+            R_new, t_new = new[:9].reshape(3, 3), new[9:]
+            Rd, td = R_rw.T @ R_new, R_rw.T @ (t_new - t_rw)
+            if self._corr_delta is None:
+                self._corr_delta = (Rd, td)
+            else:
+                # compose onto an unconsumed delta (the live pose below
+                # takes only this one: the earlier one moved it already)
+                Rp, tp = self._corr_delta
+                self._corr_delta = (Rp @ Rd, Rp @ td + tp)
+        if self.async_kf and self.ref_kf >= 0:
+            # the tracker has moved past this keyframe: re-base its live pose
+            # through the delta
+            R_np = self.R.cpu().numpy().astype(np.float64)
+            t_np = self.t.cpu().numpy().astype(np.float64)
+            self.R = torch.as_tensor(R_np @ Rd, dtype=torch.float32, device=self.device)
+            self.t = torch.as_tensor(R_np @ td + t_np, dtype=torch.float32,
+                                     device=self.device)
+            self._refresh_ref_pose(self.ref_kf, (R_new, t_new))
+        else:
+            self.R = self.state.kf_R[kf_id].clone()
+            self.t = self.state.kf_t[kf_id].clone()
         self.vel = None
 
     def _loop_seam_fuse(self, kf_id, cand):
@@ -885,15 +1117,19 @@ class StereoTracker:
             self.state.kf_R[kf_id].reshape(-1), self.state.kf_t[kf_id]]).cpu().numpy()
         self.n_lm = int(counts[0])
         self.ref_inliers = max(int(counts[1]), 1)
-        self._refresh_ref_pose(kf_id, (counts[2:11].reshape(3, 3).astype(np.float64),
-                                       counts[11:14].astype(np.float64)))
+        if not self.async_kf or self.ref_kf == kf_id:
+            self._refresh_ref_pose(kf_id, (counts[2:11].reshape(3, 3).astype(np.float64),
+                                           counts[11:14].astype(np.float64)))
         if self.atlas is not None and self.atlas.stored:
             res = self.atlas.try_merge(self.state, kf_id, self.n_kf, self.n_lm,
                                        gravity_aligned=self._gravity_aligned())
             if res is not None:
                 kf_id = self._adopt_merge(res, kf_id)
                 self.ref_inliers = max(int((self.state.kf_obs[kf_id] >= 0).sum()), 1)
-        self.prev_obs = self.state.kf_obs[kf_id].clone()
+        if not self.async_kf:
+            # the frame's bindings follow the keyframe row; in async mode
+            # later frames have moved on
+            self.prev_obs = self.state.kf_obs[kf_id].clone()
         return kf_id
 
     def _cull_keyframes(self):
@@ -960,11 +1196,13 @@ class StereoTracker:
         """Stash the active map (if the Atlas keeps it) and restart on an
         empty one. The database rows go to the host with it (102 MB for the
         10^5-word vocabulary at 256 keyframes; rare)."""
+        self._drain_kf_jobs()   # the map is stashed whole
         K = self.cfg.map.max_keyframes
         hists = (self.loop_closer.db.hist.cpu().numpy().copy()
                  if self.loop_closer is not None else np.zeros((K, 1), np.float32))
         self._freeze_trajectory()
         self.atlas.stash_active(self.state, self.n_kf, self.n_lm, hists)
+        self._kf_jobs.clear()   # pending stages name dying slots
         self.state = ms.empty(self.cfg.map, self.device)
         self.n_kf = 0
         self.kf_order = []

@@ -46,9 +46,20 @@ class InertialInitFactors(NamedTuple):
 
 
 def eig_fn(M: torch.Tensor, fn) -> torch.Tensor:
-    """V diag(fn(lambda)) V^T of symmetric (..., n, n) matrices."""
-    val, vec = torch.linalg.eigh(M)
-    return (vec * fn(val)[..., None, :]) @ vec.transpose(-1, -2)
+    """V diag(fn(lambda)) V^T of symmetric (..., n, n) matrices, computed on
+    the host and sent back to M's device. On an H100 the device path
+    (cuSOLVER's eigh, then the batched product) gave different bytes for the
+    same input bytes depending on what the process had allocated before:
+    the stereo-inertial chip phase read three different trajectories by its
+    position in the process, all parting first in the VI BA's `sqrt_psd`.
+    The matrices are at most 15 x 15, and the device path synchronised the
+    stream too (eigh's error check)."""
+    host = M.cpu()
+    val, vec = torch.linalg.eigh(host)
+    out = (vec * fn(val)[..., None, :]) @ vec.transpose(-1, -2)
+    if M.device.type == "cpu":
+        return out
+    return out.pin_memory().to(M.device, non_blocking=True)
 
 
 def information_from_cov(cov: torch.Tensor, eig_floor: float = 1e-12) -> torch.Tensor:

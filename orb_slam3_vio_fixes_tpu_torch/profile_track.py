@@ -164,9 +164,9 @@ def eigh_cost(prefix: str = "[eigh]") -> None:
               flush=True)
 
 
-def sync_sites(step, frames, prefix: str = "[syncs]") -> None:
+def sync_sites(step, frames, prefix: str = "[syncs]") -> float:
     """Count the stream syncs that step(i) makes per frame, by the line of
-    the package that made them."""
+    the package that made them; returns the syncs per frame."""
     sites = collections.Counter()
 
     def show(message, category, filename, lineno, file=None, line=None):
@@ -192,6 +192,7 @@ def sync_sites(step, frames, prefix: str = "[syncs]") -> None:
           f"per_frame={sum(sites.values()) / n:.2f}", flush=True)
     for site, c in sites.most_common():
         print(f"{prefix} {c / n:8.2f} per frame  {site}", flush=True)
+    return sum(sites.values()) / n
 
 
 def main() -> None:

@@ -244,6 +244,9 @@ def set_masked(field: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
     (`linalg.spread_dumps`)."""
     n, m = field.shape[0], idx.shape[0]
     ext = torch.cat([field, field.new_zeros((m,) + tuple(field.shape[1:]))])
+    if not isinstance(value, torch.Tensor):
+        # a Python scalar would go to the card by a synchronising copy
+        value = field.new_full((), value)
     ext[spread_dumps(idx, mask, n)] = value
     return ext[:n]
 

@@ -5,8 +5,10 @@ orb_slam3_vio_fixes_tpu/system.py).
 around one MapState for every sensor mode: MONOCULAR, STEREO, RGBD,
 IMU_MONOCULAR, IMU_STEREO and IMU_RGBD. Distorted pin-hole rigs are
 rectified (stereo) or undistorted (monocular, RGB-D) per frame on the
-device. A KannalaBrandt8 rig and the multi-device `mesh` wait for later
-slices and raise NotImplementedError.
+device. A KannalaBrandt8 stereo rig is tracked unrectified: both camera
+models and T_c1_c2 go to the tracker, whose frames are built by ray
+triangulation. The multi-device `mesh` waits for a later slice and raises
+NotImplementedError.
 
 The facade runs on the card unless the caller passes `device="cpu"`; it
 raises when CUDA is absent rather than falling back. It switches PyTorch to
@@ -69,8 +71,6 @@ class SLAMSystem:
         self.device = _device(device)
         if isinstance(settings, str):
             settings = load_settings(settings, sensor)
-        if settings.camera_type == "KannalaBrandt8":
-            raise NotImplementedError("the KannalaBrandt8 (fisheye) rig is not ported yet")
         self.settings: Settings = settings
         self.sensor = sensor
         if isinstance(vocab, str):
@@ -102,6 +102,17 @@ class SLAMSystem:
             th_depth_factor=s.th_depth, max_frames_between_kf=int(s.fps))
         self.cfg = cfg
         inv_s2 = trk.octave_inv_sigma2(cfg.orb, dev)
+
+        # a two-camera KannalaBrandt8 rig: both camera models and T_c1_c2;
+        # bf = baseline * fx for the depth thresholds when the settings give
+        # none
+        rig = None
+        if (sensor.is_stereo and s.camera_type == "KannalaBrandt8"
+                and s.cam2 is not None and s.T_c1_c2 is not None):
+            T = np.asarray(s.T_c1_c2, np.float32)
+            rig = (s.cam2, T[:3, :3], T[:3, 3])
+            if not s.bf:
+                s.bf = float(np.linalg.norm(T[:3, 3])) * float(s.cam1.fx)
 
         closer = reloc = atl = None
         if vocab is not None:
@@ -136,14 +147,14 @@ class SLAMSystem:
             else:
                 self.tracker = StereoInertialTracker(
                     s.cam1, s.bf, calib, cfg, InertialConfig(), device=dev,
-                    loop_closer=closer, relocalizer=reloc, atlas=atl)
+                    loop_closer=closer, relocalizer=reloc, atlas=atl, rig=rig)
         elif sensor.is_monocular:
             self.tracker = MonocularTracker(s.cam1, cfg, device=dev, loop_closer=closer,
                                             relocalizer=reloc, atlas=atl)
         else:
             self.tracker = trk.StereoTracker(s.cam1, s.bf, cfg, device=dev,
                                              loop_closer=closer, relocalizer=reloc,
-                                             atlas=atl)
+                                             atlas=atl, rig=rig)
         if sensor.is_rgbd:
             # RGB-D searches a wider local window
             self.tracker.th_local_base = 1.5
@@ -200,7 +211,9 @@ class SLAMSystem:
     # -- mode switches / lifecycle --
 
     def activate_localization_mode(self):
-        """Track against the existing map without growing it."""
+        """Track against the existing map without growing it (the pending
+        keyframe jobs land first)."""
+        self.tracker.flush()
         self.tracker.localization_only = True
 
     def deactivate_localization_mode(self):
@@ -214,6 +227,7 @@ class SLAMSystem:
 
     def reset_active_map(self):
         tr = self.tracker
+        tr._kf_jobs.clear()         # pending stages name dying slots
         tr._freeze_trajectory()     # keyframe slots are going away
         # the map tier is the tracker's: growth updates tracker.cfg (and the
         # database) but not the facade's
@@ -280,6 +294,7 @@ class SLAMSystem:
         """The whole Atlas: active map, stored maps, BoW databases, counters
         and the vocabulary's checksum."""
         tr = self.tracker
+        tr.flush()                  # the map is saved whole
         hists = self.loop_closer.db.hist if self.loop_closer is not None else None
         stored = self.atlas.stored if self.atlas is not None else ()
         snapshot.save_atlas(path, tr.state, tr.cfg.map, tr.n_kf, tr.n_lm, tr.kf_order,

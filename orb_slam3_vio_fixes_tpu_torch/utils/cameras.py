@@ -3,8 +3,8 @@ orb_slam3_vio_fixes_tpu/utils/cameras.py).
 
 A camera is a NamedTuple of Python floats rounded to float32, the precision
 the reference's jnp scalars carry; a float32 tensor times one of these
-computes with the same scalar. Only the pin-hole model is on the stereo main
-path; KB8 is kept for parity of the module.
+computes with the same scalar. KB8 is the fisheye rig's model (the
+two-camera frame build and the monocular residuals of its frames).
 """
 
 from __future__ import annotations
@@ -112,7 +112,10 @@ def project_jac(cam: Camera, pc: torch.Tensor) -> torch.Tensor:
         row_v = torch.stack([zeros, cam.fy * inv_z, -cam.fy * y * inv_z2], -1)
         return torch.stack([row_u, row_v], dim=-2)
     flat = pc.reshape(-1, 3)
-    jac = torch.func.vmap(torch.func.jacfwd(lambda p: project(cam, p)))(flat)
+    # each point as a (1, 3) batch: the scalars of a (3,) point would be
+    # 0-dim tensors, which forward-mode AD promotes to float64 against a
+    # Python float
+    jac = torch.func.vmap(torch.func.jacfwd(lambda p: project(cam, p[None])[0]))(flat)
     return jac.reshape(pc.shape[:-1] + (2, 3))
 
 

@@ -110,7 +110,7 @@ def test_runners_default_to_the_card(disk_seq, tmp_path, monkeypatch):  # noqa: 
 
 
 @pytest.mark.parametrize("module", ["euroc_stereo", "stereo_inertial_vio", "euroc_mono",
-                                    "tum_mono"])
+                                    "tum_mono", "tum_vi_stereo_inertial"])
 def test_example_modules_parse(module):
     r = subprocess.run(
         [sys.executable, "-m", f"orb_slam3_vio_fixes_tpu_torch.examples.{module}", "-h"],

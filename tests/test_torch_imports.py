@@ -63,7 +63,7 @@ def test_port_imports_without_jax():
         "from orb_slam3_vio_fixes_tpu_torch.examples import (\n"
         "    euroc_multisession, euroc_stereo, euroc_stereo_inertial, kitti_stereo,\n"
         "    stereo_inertial_vio, tum_rgbd)\n"
-        "from orb_slam3_vio_fixes_tpu_torch.examples import euroc_mono, tum_mono\n"
+        "from orb_slam3_vio_fixes_tpu_torch.examples import euroc_mono, tum_mono, tum_vi_stereo_inertial\n"
         "from orb_slam3_vio_fixes_tpu_torch.frontend.mono_tracking import MonocularTracker\n"
         "from orb_slam3_vio_fixes_tpu_torch.frontend.inertial_tracking import (\n"
         "    MonoInertialTracker)\n"

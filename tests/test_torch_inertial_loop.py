@@ -283,3 +283,227 @@ def test_imu_init_from_reference_state_at_full_width():
           f"deg; against the truth median port {float(np.median(err_got))!r} JAX "
           f"{float(np.median(err_ref))!r} deg")
     assert between.max() < 0.1, between
+
+
+def _gravity_apart_deg(R_a, R_b):
+    """Per keyframe, the angle between two maps' body-frame gravity (world
+    -Z in the camera frame), degrees, in float64 (arccos of a float32 dot
+    product floors at ~0.03 degree)."""
+    g = np.array([0.0, 0.0, -1.0])
+    a, b = (np.asarray(R, np.float64) @ g for R in (R_a, R_b))
+    a /= np.linalg.norm(a, axis=-1, keepdims=True)
+    b /= np.linalg.norm(b, axis=-1, keepdims=True)
+    return np.degrees(np.arctan2(np.linalg.norm(np.cross(a, b), axis=-1), (a * b).sum(-1)))
+
+
+def test_pre_init_parity_with_reference():
+    """Where the SI loop's gravity offset against the JAX package arises:
+    both StereoInertialTrackers on test_inertial_loop_closes_early's frames
+    (352x240, its configuration with the default search radii, no closer)
+    up to the IMU initialisation.
+
+    The JAX tracker's pre-init velocity model comes from the previous
+    frame's packed pose only: after a reference-keyframe fallback it has
+    none, the next frame's motion model starts from the last pose and falls
+    back again, so here it drops the velocity on every second frame. The
+    port keeps track_step_impl's own (ROADMAP queue 3, deliberate
+    differences); without the JAX rule the pre-init camera centres are 3.8
+    cm apart by frame 10 (measured with run_loop's (15, 30) px radii). With the JAX rule put on the port's tracker the two agree: the
+    same velocity drops, keyframes and initialisation frame, and pre-init
+    keyframe centres within 5e-3 m (test_torch_slice.py's tolerance;
+    measured 4.0 mm). From the JAX tracker's own pre-init state, the port's
+    initialisation agrees with JAX's within 0.1 degree of body-frame gravity
+    up to the gravity alignment (measured 1.4e-5 degree).
+
+    Where they part: the initialisation's window VI BA (its problem captured
+    from the JAX tracker's run). Its 24 landmarks seen in the window by one
+    keyframe's monocular rows only have a rank-2 3x3 block, whose 1e-6
+    damping float32 cannot hold. JAX's LU inverse of some of them is not
+    finite, so every LM step is rejected and its BA returns its input (a
+    reference fault); the port's adjugate inverse stays finite, its steps
+    are accepted and those landmarks leave for ~1e19 m (a port fault). Both
+    pinned here, with the parity that holds once those landmarks are held:
+    the two solvers within 4.5e-4 degree and 2.9e-6 m, the same inlier
+    mask (ROADMAP queue 3). Printed: the gravity apart after each of the
+    initialisation's two VI BAs, from the JAX tracker's state and from each
+    tracker's own. About 60 s on one CPU worker, most of it the JAX
+    tracker's compiles."""
+    import jax
+    import jax.numpy as jnp
+
+    from orb_slam3_vio_fixes_tpu.frontend import inertial_tracking as jit_
+    from orb_slam3_vio_fixes_tpu.frontend import tracking as jtr
+    from orb_slam3_vio_fixes_tpu.imu import preintegration as jpre
+    from orb_slam3_vio_fixes_tpu.ops import orb as jorb
+    from orb_slam3_vio_fixes_tpu.optim import vi_ba as jvi
+    from orb_slam3_vio_fixes_tpu.slam_map import map_state as jms
+    from orb_slam3_vio_fixes_tpu.utils.cameras import Camera as JCamera
+    from orb_slam3_vio_fixes_tpu_torch import convert
+    from orb_slam3_vio_fixes_tpu_torch.optim import vi_ba
+
+    s = make_seq(68, 52)
+    K, bf = s.K, s.K[0, 0] * s.baseline
+    jcfg = jtr.TrackerConfig(
+        orb=jorb.ORBConfig(n_features=384, n_levels=4),
+        map=jms.MapConfig(max_keyframes=96, max_landmarks=12288, max_features=384),
+        width=352, height=240, max_local_lm=2048, ba_window=6, ba_fixed=2,
+        new_lm_budget=256, max_frames_between_kf=4)
+    icfg = dict(frame_samples=16, kf_samples=128, init_min_kfs=4, init_min_time=0.5,
+                vi_window=6, max_local_lm=1024, fix_scale=True)
+    ref = jit_.StereoInertialTracker(
+        JCamera.pinhole(K[0, 0], K[1, 1], K[0, 2], K[1, 2]), bf,
+        jpre.ImuCalib.make(1.7e-4, 2e-3, 1.9e-5, 3e-3, s.imu_hz), jcfg,
+        jit_.InertialConfig(**icfg))
+    tcfg = tracking.TrackerConfig(**{**jcfg._asdict(), "orb": orb.ORBConfig(**jcfg.orb._asdict()),
+                                     "map": ms.MapConfig(**jcfg.map._asdict())})
+    calib = pre.ImuCalib.make(1.7e-4, 2e-3, 1.9e-5, 3e-3, s.imu_hz, device="cpu")
+
+    def port_tracker():
+        return it.StereoInertialTracker(Camera.pinhole(K[0, 0], K[1, 1], K[0, 2], K[1, 2]),
+                                        bf, calib, tcfg, it.InertialConfig(**icfg),
+                                        device="cpu")
+
+    port = port_tracker()
+    track = port._track_inertial
+
+    def jax_velocity_model(frame, ts, imu):
+        # the JAX tracker's rule: a velocity only from a previous frame that
+        # went through the packed path
+        prev_packed = port._pose_dev is not None
+        out = track(frame, ts, imu)
+        if not prev_packed and port._pose_dev is not None:
+            port.vel = None
+        return out
+
+    port._track_inertial = jax_velocity_model
+
+    def watch(tr, snaps):
+        """kf_R before and after each of the initialisation's VI BAs."""
+        for name in ("_run_inertial_ba", "_run_full_inertial_ba"):
+            real = getattr(tr, name)
+
+            def run(*a, real=real, name=name, **k):
+                snaps[name + " before"] = np.array(tr.state.kf_R, copy=True)
+                real(*a, **k)
+                snaps[name + " after"] = np.array(tr.state.kf_R, copy=True)
+
+            setattr(tr, name, run)
+
+    # the JAX initialisation's window VI BA problem: inertial_local_ba run a
+    # second time, unjitted, on copies of its inputs, with solve_vi_ba's
+    # problem captured (the tracker keeps the jitted run's result)
+    problems = []
+    jit_local_ba, jsolve = jit_.inertial_local_ba, jvi.solve_vi_ba
+
+    def capture_problem(*a, **k):
+        copies = jax.tree.map(
+            lambda x: jnp.array(x, copy=True) if isinstance(x, jax.Array) else x, (a, k))
+        out = jit_local_ba(*a, **k)
+        jvi.solve_vi_ba = lambda prob, cfg: (problems.append((prob, cfg)), jsolve(prob, cfg))[1]
+        try:
+            jit_local_ba.__wrapped__(*copies[0], **copies[1])
+        finally:
+            jvi.solve_vi_ba = jsolve
+        return out
+
+    runs = {}
+    for name, tr in (("jax", ref), ("port", port)):
+        init, vel_none, snaps = {}, [], {}
+        real = tr._initialize_imu
+
+        def captured(tr=tr, real=real, init=init, snaps=snaps, name=name):
+            init["before"] = ({f: np.array(getattr(tr.state, f), copy=True)
+                               for f in ms.MapState._fields}, dict(tr.kf_windows), tr.n_lm)
+            watch(tr, snaps)
+            if name == "jax":
+                jit_.inertial_local_ba = capture_problem
+            try:
+                real()
+            finally:
+                jit_.inertial_local_ba = jit_local_ba
+            init["after"] = np.array(tr.state.kf_R, copy=True)
+
+        tr._initialize_imu = captured
+        i = 0
+        while "after" not in init:
+            imu = s.imu[i - 1] if i > 0 else np.zeros((0, 7), np.float32)
+            tr.process_stereo_inertial(s.imgs_l[i], s.imgs_r[i], s.ts[i], imu)
+            vel_none.append(tr.vel is None)
+            i += 1
+            assert i < 30, f"{name} never initialised its IMU"
+        runs[name] = (i - 1, list(tr.kf_order), init, vel_none, snaps)
+    (j_at, j_order, j_init, j_vel, j_snaps), (p_at, p_order, p_init, p_vel, _) = (
+        runs["jax"], runs["port"])
+    assert sum(j_vel[1:]) >= 3 and j_vel == p_vel
+    assert (j_at, j_order) == (p_at, p_order)
+    live = np.asarray(j_order)
+    fields, windows, n_lm = j_init["before"]
+    p_fields = p_init["before"][0]
+    gap = np.linalg.norm(
+        np.einsum("kji,kj->ki", fields["kf_R"][live], fields["kf_t"][live])
+        - np.einsum("kji,kj->ki", p_fields["kf_R"][live], p_fields["kf_t"][live]), axis=1)
+    # the port's initialisation from the JAX tracker's pre-init state
+    tr = port_tracker()
+    tr.state = convert.map_state_from_numpy(fields, "cpu")
+    tr.kf_windows = {k: np.asarray(w) for k, w in windows.items()}
+    tr.kf_order, tr.n_kf, tr.n_lm = list(j_order), max(j_order) + 1, n_lm
+    snaps = {}
+    watch(tr, snaps)
+    tr._initialize_imu()
+    apart = {k: float(_gravity_apart_deg(snaps[k][live], j_snaps[k][live]).max())
+             for k in snaps}
+    own = _gravity_apart_deg(p_init["after"][live], j_init["after"][live])
+    print(f"IMU init at frame {j_at}: pre-init keyframe centres apart max "
+          f"{float(gap.max())!r} m; from the JAX pre-init state, gravity apart max (deg) "
+          f"{apart}; from each tracker's own state median {float(np.median(own))!r} "
+          f"max {float(own.max())!r} deg")
+    assert gap.max() < 5e-3, gap
+    assert apart["_run_inertial_ba before"] < 0.1, apart
+
+    # the window VI BA on the JAX problem (the first of the initialisation)
+    prob, cfg = problems[0]
+    leaves = lambda nt: {f: np.asarray(x) for f, x in nt._asdict().items()}  # noqa: E731
+
+    def port_solve(lm_fixed):
+        p = convert.vi_problem_from_numpy(
+            leaves(prob.states), np.asarray(prob.lm), np.asarray(prob.lm_valid), lm_fixed,
+            leaves(prob.reproj), leaves(prob.inertial), leaves(prob.prior),
+            Camera.pinhole(K[0, 0], K[1, 1], K[0, 2], K[1, 2]), prob.bf,
+            np.asarray(prob.R_cb), np.asarray(prob.t_cb), "cpu")
+        out, inlier, _ = vi_ba.solve_vi_ba(p, vi_ba.VIBAConfig(**cfg._asdict()))
+        return out.states.R_wb.numpy(), out.states.p_wb.numpy(), out.lm.numpy(), inlier.numpy()
+
+    j_out, j_inl, _ = jvi.solve_vi_ba(prob, cfg)
+    j_R, j_p = np.asarray(j_out.states.R_wb), np.asarray(j_out.states.p_wb)
+    # the reference fault: the landmarks whose window observations are one
+    # keyframe's monocular rows have a rank-2 3x3 block (the 1e-6 damping
+    # is below float32's resolution there); JAX's LU inverse of some is not
+    # finite, every LM step is rejected and the BA returns its input
+    np.testing.assert_array_equal(j_R, np.asarray(prob.states.R_wb))
+    np.testing.assert_array_equal(j_p, np.asarray(prob.states.p_wb))
+    # the port's adjugate inverse stays finite: its steps are accepted and
+    # those landmarks leave for ~1e19 m (a port fault of its own)
+    p_R, p_p, p_lm, _ = port_solve(np.asarray(prob.lm_fixed))
+    as_built = float(_gravity_apart_deg(p_R, j_R).max())
+    assert as_built > 0.1 and np.abs(p_lm).max() > 1e6, (as_built, np.abs(p_lm).max())
+    # with those landmarks held, both solvers agree (measured 4.5e-4 degree,
+    # 2.9e-6 m) and JAX's moves the window (0.50 degree)
+    rp = prob.reproj
+    valid, lm_idx = np.asarray(rp.valid), np.asarray(rp.lm_idx)
+    n_lm_win = np.asarray(prob.lm).shape[0]
+    seen = np.zeros((n_lm_win, np.asarray(prob.states.R_wb).shape[0]), bool)
+    seen[lm_idx[valid], np.asarray(rp.state_idx)[valid]] = True
+    stereo = np.bincount(lm_idx[valid & (np.asarray(rp.uvr)[:, 2] >= 0)], minlength=n_lm_win)
+    rank2 = (seen.sum(1) == 1) & (stereo == 0)
+    held = np.asarray(prob.lm_fixed) | rank2
+    j_out, j_inl, _ = jvi.solve_vi_ba(prob._replace(lm_fixed=jnp.asarray(held)), cfg)
+    j_R, j_p = np.asarray(j_out.states.R_wb), np.asarray(j_out.states.p_wb)
+    p_R, p_p, _, p_inl = port_solve(held)
+    moved = float(_gravity_apart_deg(j_R, np.asarray(prob.states.R_wb)).max())
+    held_apart = float(_gravity_apart_deg(p_R, j_R).max())
+    print(f"init window VI BA: port vs JAX as built {as_built!r} deg; with {int(rank2.sum())} "
+          f"rank-2 landmarks held {held_apart!r} deg, positions "
+          f"{float(np.abs(p_p - j_p).max())!r} m; JAX's moved {moved!r} deg")
+    assert moved > 0.1
+    assert held_apart < 0.1 and np.abs(p_p - j_p).max() < 5e-3
+    np.testing.assert_array_equal(p_inl, np.asarray(j_inl))

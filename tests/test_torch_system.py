@@ -305,9 +305,10 @@ def test_sensor_dispatch_guard(settings_path, monkeypatch, tmp_path):
         with pytest.raises(ValueError):
             mono.track_stereo(np.zeros((240, 352)), np.zeros((240, 352)), 0.0)
     assert slam.atlas.cfg.fix_scale and not slam.atlas.cfg.inertial
-    with pytest.raises(NotImplementedError):
-        sysm.SLAMSystem(os.path.join(CFG, "TUM-VI.yaml"), sysm.Sensor.IMU_STEREO,
-                        vocab=None, device="cpu")
+    # a KannalaBrandt8 rig is tracked through its two camera models
+    kb8 = sysm.SLAMSystem(os.path.join(CFG, "TUM-VI.yaml"), sysm.Sensor.IMU_STEREO,
+                          vocab=None, device="cpu")
+    assert kb8.tracker.rig is not None and kb8._rect_maps is None
     with pytest.raises(NotImplementedError):
         sysm.SLAMSystem(settings_path, sysm.Sensor.STEREO, vocab=None, mesh=object(),
                         device="cpu")
