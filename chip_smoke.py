@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero). Phases 1-5 run
-in this process; phases 7-19 run meanwhile in five worker processes on the
+in this process; phases 7-20 run meanwhile in five worker processes on the
 same card, grouped as WORKERS says, each group in its order; phase 6 runs
 last, once every worker has ended:
   1. card facts (nvidia-smi name and power limit); no CUDA -> exit non-zero;
@@ -16,8 +16,11 @@ last, once every worker has ended:
   4. K2 (fused masked Hamming best-2 + column argmin, one launch) against its
      plain twin, exact, with and without columns: 1024x1024 and 2048x1024
      with random, dense, sparse, tie-heavy, nearly and wholly masked inputs;
-     Q = T = 1, T = 1000 and 2048, Q = 300; and the two masks captured from
-     the main path (frame 0's stereo row match, a local-map search);
+     Q = T = 1, T = 1000 and 2048, Q = 300; the two masks captured from
+     the main path (frame 0's stereo row match, a local-map search); and the
+     whole-map search's shapes, Q = 1024 against T = 8192 (one shard's block
+     of a 32768-row landmark table on phase 20's 4-shard mesh) and T = 32768,
+     with a real map's valid-row mask and a tie-heavy one;
   5. the main path: the bench scenario (80 frames of 752x480 stereo, 1024
      features, 8 levels) through the port's StereoTracker in sync mode, with
      the kernel launch counters reset before and read after; the final state
@@ -70,7 +73,11 @@ last, once every worker has ended:
      the run without the closer and within the stated bound of the JAX
      package's; loop stage
      times per keyframe and the post-loop full VI BA time; K1 and K2 exact
-     on this path's inputs (K2 on verify_candidate masks);
+     on this path's inputs (K2 on verify_candidate masks); then the input of
+     the first post-loop full VI BA solved again by run_global_vi_ba_sharded
+     on a 4-shard mesh of the card, within the JAX test's sharded-parity bars
+     of the unsharded result (keyframe positions 2e-3 m, rotation traces
+     3 - 1e-4, landmark median 1e-3 m, inliers 2%);
  13. stereo-inertial relocalisation and Atlas (SI_ATLAS_PLAN on a 52-frame
      lap, recently_lost_time cut to 0.25 s): after the IMU initialisation a
      short blackout ends in a relocalisation inside the dead-reckoning
@@ -141,8 +148,21 @@ last, once every worker has ended:
      SLAMSystem on the same frames, K1 once per frame (B = 2, 512x512) and
      K2 at least once per matcher call; K1 exact on frame 0's atlas, K2 on
      its brute-force left-right mask.
+ 20. the multi-device mesh on the one card (parallel.Mesh of 4 shards, all
+     on it): (a) phase 8's loop scene with a LoopCloser on the mesh: a
+     correction, every correction's global BA landmark-sharded, the ATE
+     within phase 8's bound; the first correction's GBA input solved by the
+     unsharded run_global_ba (camera centres within 2e-3 m, landmark median
+     within 1e-3 m) and by the sharded solve twice more, byte for byte the
+     run's; (b) phase 9's blackout through a Relocalizer on the mesh (axis
+     "db"): the hit from the whole-map search (n_success_global), the centre
+     within 5 cm, one K2 launch per shard per search; (c)
+     dryrun.dryrun_multichip(4) with full bind parity, and the dense
+     distributed BA step twice on one input, byte-identical. Prints ms per
+     sharded and unsharded GBA and per sharded search, launches and peak
+     device memory.
 Phase 14 also runs MONOCULAR (40 frames) and IMU_MONOCULAR (60) through
-track_monocular. Each of phases 8-17 prints its K1/K2 launches and peak
+track_monocular. Each of phases 8-17 and 20 prints its K1/K2 launches and peak
 device memory; phases 18-19 print their launches per pass and mode. The whole
 script runs in PyTorch's deterministic mode
 (utils/determinism.py, switched on before any CUDA work): one answer per
@@ -200,6 +220,14 @@ VI_PROFILED_FRAMES = 3
 JAX_LOOP_ATE_M = 0.027254149578157468
 LOOP_FRAMES = 88
 LOOP_LAP = 72
+
+# Phase 20: the multi-device mesh on one card, every shard on it. The
+# sharded global BA against the unsharded one on the first correction's
+# input: camera centres within 2e-3 m and the landmark median within 1e-3 m
+# (tests/test_vi_global_ba.py::test_vi_gba_sharded_parity_8_devices's bars).
+MESH_SHARDS = 4
+MESH_CENTRE_M = 2e-3
+MESH_LM_MEDIAN_M = 1e-3
 
 # The stereo-inertial revisit (tests/test_e2e_inertial_loop.py's scenario at
 # 752x480 with the bench's camera) and its configuration. ATE of the JAX
@@ -588,7 +616,21 @@ def check_k2(device, path_masks) -> dict:
     for (Q, T), kind in shapes:
         err = max(err, _k2_compare(f"{Q}x{T} {kind}", *_k2_inputs(g, Q, T, kind, device)))
     for name, (dq, dt, mask, _) in path_masks.items():
-        err = max(err, _k2_compare(f"path {name} {tuple(mask.shape)}", dq, dt, mask))
+        if name != "whole_map":
+            err = max(err, _k2_compare(f"path {name} {tuple(mask.shape)}", dq, dt, mask))
+    # the whole-map search's shapes (phase 20): Q = 1024 features against one
+    # shard's block of a 32768-row landmark table on a 4-shard mesh and
+    # against the whole table, masks from a real map's valid rows and
+    # tie-heavy ones
+    fd, fv, lm_desc, lm_valid = path_masks["whole_map"]
+    for T in (8192, 32768):
+        mask = fv[:, None] & lm_valid[None, :T]
+        log(f"[k2] whole-map {fd.shape[0]}x{T} map: valid_queries={int(fv.sum())} "
+            f"valid_rows={int(lm_valid[:T].sum())} admissible={int(mask.sum())}")
+        err = max(err, _k2_compare(f"whole-map {fd.shape[0]}x{T} map", fd,
+                                   lm_desc[:T].contiguous(), mask))
+        err = max(err, _k2_compare(f"whole-map 1024x{T} ties",
+                                   *_k2_inputs(g, 1024, T, "ties", device)))
     return {"max_abs_err": float(err)}
 
 
@@ -647,6 +689,11 @@ def capture_path_masks(seq, device) -> dict:
         _, _, mask, cols = out[key]
         log(f"[k2] path mask {key}: shape={tuple(mask.shape)} cols={cols} "
             f"density={float(mask.float().mean())!r} admissible={int(mask.sum())}")
+    # the whole-map search's inputs on this map: keyframe 0's features
+    # against the landmark table (phase 20's relocaliser binds a frame so)
+    st = tr.state
+    out["whole_map"] = (st.kf_desc[0].clone(), st.kf_feat_valid[0].clone(),
+                        st.lm_desc.clone(), st.lm_valid.clone())
     return out
 
 
@@ -954,7 +1001,13 @@ def path_kernel_times(seq, device, path_masks, card) -> dict:
               *_k2_inputs(g, Q, 1024, "random", device), cols)
              for Q in (1024, 2048) for cols in (True, False)]
     cases += [(f"hamming_match path {name} {'cols' if cols else 'rows'}", dq, dt, mask, cols)
-              for name, (dq, dt, mask, cols) in path_masks.items()]
+              for name, (dq, dt, mask, cols) in path_masks.items() if name != "whole_map"]
+    # the whole-map search (phase 20): one shard's (1024, 8192) block of the
+    # 32768-row landmark table on the 4-shard mesh, and the whole table
+    fd, fv, lm_desc, lm_valid = path_masks["whole_map"]
+    cases += [(f"hamming_match whole-map {fd.shape[0]}x{T} rows", fd,
+               lm_desc[:T].contiguous(), fv[:, None] & lm_valid[None, :T], False)
+              for T in (8192, 32768)]
     for label, dq, dt, mask, cols in cases:
         rows[label] = (
             *cuda_ms(lambda: matching.hamming_match(dq, dt, mask, cols), 50, host=True),
@@ -1009,7 +1062,7 @@ def make_revisit_sequence(seed: int):
     return seq._replace(imgs_l=quantize(seq.imgs_l), imgs_r=quantize(seq.imgs_r))
 
 
-def loop_closer(seq, vocab, device, **cfg):
+def loop_closer(seq, vocab, device, mesh=None, **cfg):
     """A LoopCloser over the bench configuration's keyframe capacity."""
     from orb_slam3_vio_fixes_tpu_torch.frontend import loop_closing as lc
     from orb_slam3_vio_fixes_tpu_torch.frontend.tracking import octave_inv_sigma2
@@ -1018,7 +1071,7 @@ def loop_closer(seq, vocab, device, **cfg):
     return lc.LoopCloser(vocab, camera_of(seq), tcfg.map.max_keyframes,
                          octave_inv_sigma2(tcfg.orb, device), lc.LoopConfig(**cfg),
                          bf=seq.K[0, 0] * seq.baseline, n_levels=tcfg.orb.n_levels,
-                         scale=tcfg.orb.scale, device=device)
+                         scale=tcfg.orb.scale, mesh=mesh, device=device)
 
 
 def build_kf4_tracker(seq, device, **kw):
@@ -1250,6 +1303,219 @@ def reloc_path(vocab, device, card) -> dict:
     return counts
 
 
+def _centres(state):
+    return -(state.kf_R.transpose(1, 2) @ state.kf_t[..., None])[..., 0]
+
+
+def first_call_probe(owner, name):
+    """(patch, probe): the patch records, without changing it, each call of
+    owner.name: the number of calls, and a copy of the first call's input
+    state and arguments and of its result."""
+    probe = {"calls": 0}
+    real = getattr(owner, name)
+
+    def call(state, *a, **k):
+        probe["calls"] += 1
+        if "input" in probe:
+            return real(state, *a, **k)
+        probe["input"] = (clone_state(state), a, dict(k))
+        out, n = real(state, *a, **k)
+        probe["output"] = (clone_state(out), int(n))
+        return out, n
+
+    return mock.patch.object(owner, name, call), probe
+
+
+def mesh_loop(vocab, device, card) -> dict:
+    """Phase 20 (a): phase 8's loop scene through the StereoTracker with a
+    LoopCloser on a 4-shard mesh of this card. Gates: a correction, every
+    correction's global BA landmark-sharded, the ATE within phase 8's bound;
+    the first correction's GBA input solved by the unsharded
+    global_ba.run_global_ba within MESH_CENTRE_M / MESH_LM_MEDIAN_M, and by
+    the sharded solve twice more, every byte equal to the run's."""
+    from orb_slam3_vio_fixes_tpu_torch import kernels
+    from orb_slam3_vio_fixes_tpu_torch.frontend.tracking import TrackState
+    from orb_slam3_vio_fixes_tpu_torch.optim import global_ba
+    from orb_slam3_vio_fixes_tpu_torch.parallel import Mesh, sharded_ba
+
+    seq = make_loop_sequence()
+    mesh = Mesh([device] * MESH_SHARDS, ("lm",))
+    closer = loop_closer(seq, vocab, device, mesh=mesh, min_gap_kfs=8, n_consistency=2,
+                         fix_scale=True)
+    patch, probe = first_call_probe(sharded_ba, "distributed_global_ba")
+    single_patch, single = first_call_probe(global_ba, "run_global_ba")
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with patch, single_patch:
+        tr, per = run_pass(seq, device,
+                           build=lambda s, d: build_kf4_tracker(s, d, loop_closer=closer))
+    sync()
+    counts = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ate_on, gap_on = loop_metrics(seq, tr)
+    bound = ATE_FACTOR * JAX_LOOP_ATE_M + ATE_SLACK_M
+    log(f"[mesh] loop on {mesh}: state={tr.track_state} keyframes={len(tr.kf_order)} "
+        f"corrections={closer.n_corrections} sharded_gbas={probe['calls']} "
+        f"unsharded_gbas={single['calls']} ate_rmse_m={ate_on!r} bound_m={bound!r} "
+        f"revisit_gap_m={gap_on!r} launches={counts} peak_device_mib={peak / 2**20:.1f} "
+        f"wall={wall:.1f}s")
+    log(f"[timing] {card}: mesh loop scenario {frame_stats(per)}")
+    if tr.track_state != TrackState.OK or closer.n_corrections < 1:
+        raise RuntimeError(f"mesh loop: state {tr.track_state}, "
+                           f"{closer.n_corrections} corrections")
+    if probe["calls"] != closer.n_corrections or single["calls"]:
+        raise RuntimeError(f"mesh loop: {probe['calls']} sharded and {single['calls']} "
+                           f"unsharded global BAs for {closer.n_corrections} corrections")
+    if not ate_on <= bound:
+        raise RuntimeError(f"mesh loop ATE {ate_on} m over the bound {bound} m")
+    check_launches("mesh loop", counts, LOOP_FRAMES,
+                   LOOP_FRAMES + 2 * (LOOP_FRAMES - 1) + 6 * tr._kf_seq)
+    # the first correction's global BA, unsharded and sharded again
+    state, a, k = probe["input"]
+    ref, n_ref = probe["output"]
+    runs = {}
+    for name, fn in (("unsharded", lambda s: global_ba.run_global_ba(s, *a[:3], 0, **{
+                         key: v for key, v in k.items() if key in ("n_levels", "scale")})),
+                     ("sharded_1", lambda s: sharded_ba.distributed_global_ba(s, *a, **k)),
+                     ("sharded_2", lambda s: sharded_ba.distributed_global_ba(s, *a, **k))):
+        inp = clone_state(state)
+        sync()
+        t1 = time.perf_counter()
+        out, n = fn(inp)
+        sync()
+        runs[name] = (out, int(n), 1e3 * (time.perf_counter() - t1))
+    kv = ref.kf_valid
+    single_out, n_single, ms_single = runs["unsharded"]
+    dc = float((_centres(ref) - _centres(single_out))[kv].norm(dim=-1).max())
+    lm_med = float((ref.lm_pos - single_out.lm_pos)[ref.lm_valid].norm(dim=-1).median())
+    same = all(torch.equal(getattr(runs[r][0], f), getattr(ref, f))
+               for r in ("sharded_1", "sharded_2") for f in ref._fields
+               if isinstance(getattr(ref, f), torch.Tensor))
+    same = same and runs["sharded_1"][1] == runs["sharded_2"][1] == n_ref
+    log(f"[mesh] {card}: first correction's GBA (K={int(kv.sum())} keyframes, "
+        f"{int(ref.lm_valid.sum())} landmarks): sharded vs unsharded centre_max_m={dc!r} "
+        f"landmark_median_m={lm_med!r} inliers={n_ref} unsharded={n_single}; "
+        f"two more sharded runs byte-identical={same}; ms per sharded GBA "
+        f"{runs['sharded_1'][2]:.1f} / {runs['sharded_2'][2]:.1f}, unsharded "
+        f"{ms_single:.1f}")
+    if not (dc < MESH_CENTRE_M and lm_med < MESH_LM_MEDIAN_M):
+        raise RuntimeError(f"the sharded GBA parts from the unsharded one: {dc} m, {lm_med} m")
+    if not same:
+        raise RuntimeError("two runs of the sharded GBA on one input differ")
+    return counts
+
+
+def mesh_reloc(vocab, device, card) -> dict:
+    """Phase 20 (b): phase 9's blackout through a Relocalizer on a 4-shard
+    mesh (axis "db") of this card. Gates: OK again with the hit from the
+    whole-map search (n_success_global >= 1), the centre within 5 cm, and
+    each search one K2 launch per shard."""
+    from orb_slam3_vio_fixes_tpu_torch import kernels
+    from orb_slam3_vio_fixes_tpu_torch.frontend import relocalization as rl
+    from orb_slam3_vio_fixes_tpu_torch.frontend.tracking import TrackState
+    from orb_slam3_vio_fixes_tpu_torch.parallel import Mesh
+    from orb_slam3_vio_fixes_tpu_torch.parallel import sharded_matching as sm
+
+    seq = make_revisit_sequence(3)
+    mesh = Mesh([device] * MESH_SHARDS, ("db",))
+    closer = loop_closer(seq, vocab, device, min_gap_kfs=10**6)
+    reloc = rl.Relocalizer(vocab, lambda: closer.db, mesh=mesh, device=device)
+    searches = []
+    real = sm.sharded_match
+
+    def search(*a, **k):
+        sync()
+        n0, t1 = kernels.launch_counts()["hamming_match"], time.perf_counter()
+        out = real(*a, **k)
+        sync()
+        searches.append((kernels.launch_counts()["hamming_match"] - n0,
+                         1e3 * (time.perf_counter() - t1), tuple(a[2].shape)))
+        return out
+
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(sm, "sharded_match", search):
+        tr = build_kf4_tracker(seq, device, loop_closer=closer, relocalizer=reloc)
+        for i in range(12):
+            tr.process_stereo(seq.imgs_l[i], seq.imgs_r[i], seq.ts[i])
+        state_before = tr.track_state
+        for j in range(4):
+            tr.process_stereo(*blank_pair(), 0.6 + 0.05 * j)
+        state_lost = tr.track_state
+        tr.process_stereo(seq.imgs_l[6], seq.imgs_r[6], 0.8)
+        sync()
+    counts = kernels.launch_counts()
+    C = -tr.R.cpu().numpy().T @ tr.t.cpu().numpy()
+    err = float(np.linalg.norm(C - seq.t_wc[6]))
+    log(f"[mesh] reloc on {mesh}: states={state_before}/{state_lost}/{tr.track_state} "
+        f"n_success={reloc.n_success} n_success_global={reloc.n_success_global} "
+        f"centre_err_m={err!r} searches={len(searches)} launches={counts} "
+        f"peak_device_mib={torch.cuda.max_memory_allocated() / 2**20:.1f} "
+        f"wall={time.perf_counter() - t0:.1f}s")
+    for n_k2, ms, shape in searches:
+        log(f"[timing] {card}: sharded whole-map search of a {shape[0]}-row table on "
+            f"{MESH_SHARDS} shards: ms={ms:.2f} k2_launches={n_k2}")
+    if tr.track_state != TrackState.OK or reloc.n_success_global < 1 or not err < 0.05:
+        raise RuntimeError(f"mesh relocalisation failed: {tr.track_state} "
+                           f"n_success_global={reloc.n_success_global} centre error {err} m")
+    if not searches or any(n_k2 != MESH_SHARDS for n_k2, _, _ in searches):
+        raise RuntimeError(f"K2 launches per whole-map search {[x[0] for x in searches]}, "
+                           f"not {MESH_SHARDS}")
+    return counts
+
+
+def mesh_path(vocab, device, card) -> dict:
+    """Phase 20: the mesh paths on one card, every shard on it: (a) the
+    loop scene with a sharded global BA, (b) the blackout with the sharded
+    whole-map search, (c) dryrun.dryrun_multichip(4) with full bind parity,
+    and the dense distributed BA step twice on one input, byte-identical."""
+    from orb_slam3_vio_fixes_tpu_torch import dryrun
+    from orb_slam3_vio_fixes_tpu_torch.optim import ba_core
+    from orb_slam3_vio_fixes_tpu_torch.parallel import Mesh, sharded_ba
+    from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
+
+    out = {"mesh_loop": mesh_loop(vocab, device, card),
+           "mesh_reloc": mesh_reloc(vocab, device, card)}
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(MESH_SHARDS, device=device)
+    sync()
+    log(f"[mesh] dryrun_multichip({MESH_SHARDS}) on {card}: {dry} "
+        f"wall={time.perf_counter() - t0:.1f}s")
+    if not (dry["both"] > 0 and dry["parity"] == dry["both"]):
+        raise RuntimeError(f"sharded bind parity {dry['parity']}/{dry['both']}")
+    # the dense distributed step (a (6P)^2 solve on the card) twice on the
+    # realistic map's problem
+    state, *_, cam, bf = dryrun.realistic_map(device)
+    K = state.kf_R.shape[0]
+    pose_idx, lm_idx, uvr, inv_s2, valid = ms.ba_factors_from_map(
+        state, torch.arange(K, device=device), torch.ones(8, device=device))
+    fixed = torch.zeros(K, dtype=torch.bool, device=device)
+    fixed[0] = True
+    problem = ba_core.BAProblem(state.kf_R, state.kf_t, fixed, state.lm_pos, state.lm_valid,
+                                torch.zeros_like(state.lm_valid),
+                                ba_core.ReprojFactors(pose_idx, lm_idx, uvr, inv_s2, valid),
+                                cam, bf)
+    part = sharded_ba.partition_problem(problem, MESH_SHARDS)
+    mesh = Mesh([device] * MESH_SHARDS, ("lm",))
+    dense = [sharded_ba.distributed_bundle_adjust(part, mesh,
+                                                  ba_core.LMConfig(n_rounds=1, n_iters=2))
+             for _ in range(2)]
+    same = all(torch.equal(x, y) for x, y in zip((dense[0][0].R, dense[0][0].t,
+                                                  dense[0][0].lm, dense[0][2]),
+                                                 (dense[1][0].R, dense[1][0].t,
+                                                  dense[1][0].lm, dense[1][2])))
+    log(f"[mesh] dense distributed BA (P={K}, {int(valid.sum())} factors) twice: "
+        f"byte-identical={same}")
+    if not same:
+        raise RuntimeError("two runs of the dense distributed BA on one input differ")
+    return out
+
+
 def snapshot_check(label, tr, atlas, closer, vocab, device) -> None:
     """Phase 11: save the Atlas (active map, stored maps, histograms, the
     vocabulary), load it back and require every array equal."""
@@ -1458,6 +1724,7 @@ def si_loop_path(vocab, device, card) -> dict:
     keys = ("verify_candidate", "verify_candidate/match_descriptors")
     record, tagged, masks = matcher_recorder(set(keys), densest=True)
     closer = loop_closer(seq, vocab, device, **SI_LOOP_LCFG)
+    probe, gba_probe = first_post_loop_vi_gba()
     sync()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1467,7 +1734,7 @@ def si_loop_path(vocab, device, card) -> dict:
                               tagged("verify_candidate", lc.verify_candidate)), \
             mock.patch.object(matching, "match_descriptors",
                               tagged("match_descriptors", matching.match_descriptors)), \
-            pt.stage_timers(stages) as times:
+            probe, pt.stage_timers(stages) as times:
         tr, per_on = run_pass(
             seq, device, build=lambda s, d: build_si_loop_tracker(s, d, loop_closer=closer))
     sync()
@@ -1511,7 +1778,80 @@ def si_loop_path(vocab, device, card) -> dict:
     check_launches("si_loop", counts, n, min_k2)
     k1_on_frames("si_loop", seq, (0, n - 1), device)
     k2_on_masks("si_loop", masks, keys)
+    sharded_vi_gba_check(gba_probe, device, card)
     return counts
+
+
+def clone_state(state):
+    return type(state)(*(f.clone() if isinstance(f, torch.Tensor) else f for f in state))
+
+
+def first_post_loop_vi_gba():
+    """(patch, probe): the patch records, without changing it, the first
+    full-map VI BA that an inertial tracker's _post_loop_gba runs: a copy
+    of its input state, its other arguments, and a copy of its result."""
+    from orb_slam3_vio_fixes_tpu_torch.frontend import inertial_tracking as it
+    from orb_slam3_vio_fixes_tpu_torch.optim import vi_global_ba as vg
+
+    probe = {}
+    real_gba, real_post = vg.run_global_vi_ba, it.StereoInertialTracker._post_loop_gba
+
+    def post_loop(self, kf_id):
+        probe["in_post_loop"] = True
+        try:
+            return real_post(self, kf_id)
+        finally:
+            probe["in_post_loop"] = False
+
+    def gba(state, *a, **k):
+        if not probe.get("in_post_loop") or "input" in probe:
+            return real_gba(state, *a, **k)
+        probe["input"] = (clone_state(state), a, dict(k))
+        out, n_inl = real_gba(state, *a, **k)
+        probe["output"] = (clone_state(out), int(n_inl))
+        return out, n_inl
+
+    patch = contextlib.ExitStack()
+    patch.enter_context(mock.patch.object(vg, "run_global_vi_ba", gba))
+    patch.enter_context(mock.patch.object(it.StereoInertialTracker, "_post_loop_gba",
+                                          post_loop))
+    return patch, probe
+
+
+def sharded_vi_gba_check(probe, device, card) -> None:
+    """Phase 12's sharded check: the input of its first post-loop full VI BA
+    solved again by run_global_vi_ba_sharded on a 4-shard mesh on this card,
+    against the unsharded result the phase produced, with
+    tests/test_vi_global_ba.py::test_vi_gba_sharded_parity_8_devices's bars:
+    keyframe positions within 2e-3 m, every relative rotation's trace above
+    3 - 1e-4, the landmark median within 1e-3 m, inliers within 2%."""
+    from orb_slam3_vio_fixes_tpu_torch.optim import vi_global_ba as vg
+    from orb_slam3_vio_fixes_tpu_torch.parallel import Mesh
+
+    if "input" not in probe:
+        raise RuntimeError("no post-loop full VI BA to hold the sharded one against")
+    state, a, k = probe["input"]
+    ref, n_ref = probe["output"]
+    k = {key: v for key, v in k.items() if key not in ("f_budget", "lm_budget")}
+    mesh = Mesh([device] * MESH_SHARDS, ("lm",))
+    sync()
+    t0 = time.perf_counter()
+    got, n_got = vg.run_global_vi_ba_sharded(clone_state(state), *a, mesh, **k)
+    n_got = int(n_got)
+    sync()
+    ms_sharded = 1e3 * (time.perf_counter() - t0)
+    live = ref.kf_valid & ~a[5]
+    dt = float((got.kf_t - ref.kf_t)[ref.kf_valid].abs().max())
+    trace = (ref.kf_R[ref.kf_valid] @ got.kf_R[ref.kf_valid].transpose(1, 2)).diagonal(
+        dim1=1, dim2=2).sum(-1)
+    lm_med = float((got.lm_pos - ref.lm_pos)[ref.lm_valid].norm(dim=-1).median())
+    log(f"[si_loop] {card}: sharded VI GBA on {mesh}: kf_t_max_diff_m={dt!r} "
+        f"min_rotation_trace={float(trace.min())!r} landmark_median_m={lm_med!r} "
+        f"inliers={n_got} unsharded={n_ref} free_keyframes={int(live.sum())} "
+        f"sharded_ms={ms_sharded:.1f}")
+    if not (dt < 2e-3 and float(trace.min()) > 3 - 1e-4 and lm_med < 1e-3
+            and abs(n_got - n_ref) <= 0.02 * max(n_ref, 1)):
+        raise RuntimeError("the sharded VI GBA parts from the unsharded one")
 
 
 def aligned_centre_error(seq, tr, upto: int, frame: int) -> float:
@@ -2384,7 +2724,7 @@ def fisheye_path(device, card) -> dict:
 # phase_repeat's runs are. The kernel timings (phase 6) run after every
 # worker has ended, on a card that runs nothing else.
 WORKERS = (("si_loop",),
-           ("si_atlas", "mono_inertial"),
+           ("si_atlas", "mono_inertial", "mesh"),
            ("facade", "app"),
            ("pipelined", "fisheye"),
            ("stereo_inertial", "loop", "relocalization", "atlas", "mono"))
@@ -2437,6 +2777,7 @@ def run_phases(names, card, report) -> None:
         "mono_inertial": lambda: {"mono_inertial": mono_inertial_path(device, card)},
         "pipelined": lambda: per_pass("pipelined", pipelined_path(seq(), device, card)),
         "fisheye": lambda: per_pass("fisheye", fisheye_path(device, card)),
+        "mesh": lambda: mesh_path(vocab(), device, card),
     }
     for name in names:
         t = time.perf_counter()

@@ -21,8 +21,9 @@ in its maps: a relocalisation inside the dead-reckoning window, a new map
 in the Atlas when the window runs out, loop detection once the IMU is
 initialised (the inertial closer's 4-DoF graph, then the full-map VI BA),
 and the MergeInertialBA analogue after a map merge. `process_rgbd_inertial`
-is the IMU_RGBD entry; `MonoInertialTracker` the IMU_MONOCULAR one. Waiting
-for a later slice: the landmark-sharded full-map BA (`mesh`).
+is the IMU_RGBD entry; `MonoInertialTracker` the IMU_MONOCULAR one. When
+the loop closer carries a `parallel.Mesh`, the full-map VI BA runs
+landmark-sharded over it (optim/vi_global_ba.run_global_vi_ba_sharded).
 """
 
 from __future__ import annotations
@@ -167,14 +168,38 @@ def vi_track_step(state: ms.MapState, prev_obs, prev_octave, prev_angle,
     return cur_body, next_H, cur_obs, cur_pred, R_pred, t_pred, R2, t2, packed
 
 
+def single_view_landmarks(reproj: vi_ba.VIReprojFactors, n_lm: int,
+                          n_states: int) -> torch.Tensor:
+    """(n_lm,) bool: the window landmarks whose valid reprojection factors
+    all come from one window state and include no stereo row. Their 3x3
+    block has rank 2 (one bearing, no disparity): the float32 LM damping
+    cannot make it invertible, and an inverse that stays finite sends such
+    a landmark along its ray without bound (ORB-SLAM3 optimises only the
+    landmarks the window constrains). On the device, no host sync; every
+    pad goes to a dump row of its own."""
+    dev = reproj.valid.device
+    valid = reproj.valid
+    lm = reproj.lm_idx.to(torch.int64)
+    pair = lm * n_states + reproj.state_idx.to(torch.int64)
+    seen = ms.set_masked(torch.zeros(n_lm * n_states, dtype=torch.bool, device=dev),
+                         pair, valid, True).reshape(n_lm, n_states)
+    stereo = ms.set_masked(torch.zeros(n_lm, dtype=torch.bool, device=dev), lm,
+                           valid & (reproj.uvr[:, 2] >= 0.0), True)
+    return (seen.sum(1) == 1) & ~stereo
+
+
 def inertial_local_ba(state: ms.MapState, window_kfs, kf_imu, kf_imu_valid,
                       cam: Camera, bf: float, calib: pre.ImuCalib,
-                      cfg: trk.TrackerConfig, icfg: InertialConfig) -> ms.MapState:
+                      cfg: trk.TrackerConfig, icfg: InertialConfig,
+                      hold_single_view: bool = False) -> ms.MapState:
     """Temporal-window VI bundle adjustment: the last W keyframes
     (`window_kfs`, newest first, -1 padded) and their landmarks, the IMU
     chain between consecutive window keyframes (kf_imu[i], (W-1, S, 7),
     joins window_kfs[i+1] -> [i]), the oldest state fixed. Window landmarks
-    are compacted to icfg.max_local_lm. Updates `state` in place."""
+    are compacted to icfg.max_local_lm; those seen by one observer in the map
+    are held, and with `hold_single_view` also those the window sees from
+    one keyframe's monocular rows only (`single_view_landmarks`). Updates
+    `state` in place."""
     K, N = state.kf_obs.shape
     L = state.lm_pos.shape[0]
     W = window_kfs.shape[0]
@@ -213,9 +238,12 @@ def inertial_local_ba(state: ms.MapState, window_kfs, kf_imu, kf_imu_valid,
         ar[1:], ar[:-1], pres, kf_imu_valid & ok[1:] & ok[:-1])
     # single-observer landmarks stay at their stereo anchor
     n_obs = ms.landmark_obs_count(state)[cand_idx]
+    held = (n_obs < 2) | ~cand_ok
+    if hold_single_view:
+        held = held | single_view_landmarks(reproj, M, W)
     prob = vi_ba.VIProblem(
         states=states, lm=state.lm_pos[cand_idx], lm_valid=cand_ok,
-        lm_fixed=(n_obs < 2) | ~cand_ok, reproj=reproj, inertial=inertial,
+        lm_fixed=held, reproj=reproj, inertial=inertial,
         prior=vi_ba.VIPrior.none(dev), cam=cam, bf=bf, R_cb=R_cb, t_cb=t_cb)
     out, inlier, _ = vi_ba.solve_vi_ba(prob, vi_ba.VIBAConfig(n_rounds=2, n_iters=6),
                                        want_info=False)
@@ -241,14 +269,20 @@ class StereoInertialTracker(trk.StereoTracker):
 
     Host additions over the visual tracker: IMU buffers between frames and
     keyframes, the 3-stage IMU initialisation, the marginalised-prior joint
-    motion optimisation after init, and inertial window BA for mapping."""
+    motion optimisation after init, and inertial window BA for mapping.
+
+    The initialisation's window VI BA holds the landmarks the window sees
+    from one keyframe's monocular rows only (`hold_single_view_at_init`):
+    their rank-2 blocks sent them along their rays without bound. The later
+    window BAs leave them free: holding them there too moved the stereo-
+    inertial loop (chip_smoke phase 12) to an ATE over its bar."""
+
+    hold_single_view_at_init = True
 
     def __init__(self, cam: Camera, bf: float, calib: pre.ImuCalib,
                  cfg: trk.TrackerConfig = trk.TrackerConfig(),
                  icfg: InertialConfig = InertialConfig(), *, device,
                  loop_closer=None, relocalizer=None, atlas=None, rig=None):
-        if getattr(loop_closer, "mesh", None) is not None:
-            raise NotImplementedError("the landmark-sharded VI BA (mesh) is not ported yet")
         super().__init__(cam, bf, cfg, device=device, loop_closer=loop_closer,
                          relocalizer=relocalizer, atlas=atlas, rig=rig)
         self.calib = calib
@@ -681,6 +715,14 @@ class StereoInertialTracker(trk.StereoTracker):
             pose_fixed = np.zeros(self.cfg.map.max_keyframes, bool)
             pose_fixed[self.kf_order[0]] = True
         inertial = self._full_map_imu_factors()
+        mesh = getattr(self.loop_closer, "mesh", None)
+        if mesh is not None:
+            # landmark-sharded over the closer's mesh, the visual GBA's layout
+            self.state, _ = vg.run_global_vi_ba_sharded(
+                self.state, inertial, trk.octave_inv_sigma2(self.cfg.orb, self.device),
+                self.cam, self.bf, self.calib, self._upload(pose_fixed), mesh,
+                n_levels=self.cfg.orb.n_levels, scale=self.cfg.orb.scale)
+            return
         # compact to the live problem size (power-of-2 tiers)
         f_live = max(len(self.kf_order) * self.cfg.map.max_features, 1024)
         f_budget = 1 << int(np.ceil(np.log2(f_live)))
@@ -719,7 +761,7 @@ class StereoInertialTracker(trk.StereoTracker):
         # everything else fixed
         self._run_full_inertial_ba(pose_fixed=self._merge_pose_fixed(weld_adj, weld_fixed))
 
-    def _run_inertial_ba(self, kf_id):
+    def _run_inertial_ba(self, kf_id, init: bool = False):
         W = self.icfg.vi_window
         # newest-first live keyframes (slots may be sparse after culling;
         # kf_windows[k] spans from k's live predecessor)
@@ -727,7 +769,8 @@ class StereoInertialTracker(trk.StereoTracker):
         kf_imu, imu_valid = self._window_imu(ids)
         self.state = inertial_local_ba(
             self.state, self._upload(np.asarray(ids, np.int64)), kf_imu, imu_valid,
-            self.cam, self.bf, self.calib, self.cfg, self.icfg)
+            self.cam, self.bf, self.calib, self.cfg, self.icfg,
+            hold_single_view=init and self.hold_single_view_at_init)
         self.n_vi_ba += 1
 
     def _initialize_imu(self):
@@ -808,7 +851,7 @@ class StereoInertialTracker(trk.StereoTracker):
         self.imu_ready = True
         # the window VI BA first (steadies the newest keyframes), then the
         # full-map VI BA
-        self._run_inertial_ba(kf_last)
+        self._run_inertial_ba(kf_last, init=True)
         self._run_full_inertial_ba()
         self._rebase_on(kf_last)
 
@@ -820,7 +863,14 @@ class MonoInertialTracker(MonoInit, StereoInertialTracker):
     initialisation estimates the scale (`fix_scale=False`) and brings the
     map to metric. The motion model keeps the narrow (7, 14) px radii: the
     IMU prediction centres the window well, and a wide first window on
-    repeated texture admits aliased matches that bias the scale."""
+    repeated texture admits aliased matches that bias the scale.
+
+    Every row is monocular here, so the single-view hold of the stereo
+    tracker's initialisation would pin the window to the map's pre-init
+    scale (chip_smoke phase 17 read a Horn scale of 1.28 with it): the
+    initialisation's window BA leaves those landmarks free."""
+
+    hold_single_view_at_init = False
 
     def __init__(self, cam: Camera, calib: pre.ImuCalib,
                  cfg: trk.TrackerConfig = trk.TrackerConfig(),

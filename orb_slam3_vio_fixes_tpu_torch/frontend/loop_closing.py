@@ -9,8 +9,9 @@ count; a correction fires only after `n_consistency` consecutive keyframes
 verify the same region, then runs the essential-graph optimisation, moves
 every landmark through its anchor keyframe's correction, and (small maps)
 a global BA. The randomness of the RANSAC comes from an explicit
-`torch.Generator`. The multi-device global BA of the reference (`mesh`) is
-not ported.
+`torch.Generator`. With a `parallel.Mesh` the global BA is the
+landmark-sharded one (parallel/sharded_ba.distributed_global_ba), and an
+inertial tracker runs its full-map VI BA sharded over the same mesh.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from orb_slam3_vio_fixes_tpu_torch.ops import matching
 from orb_slam3_vio_fixes_tpu_torch.ops import sim3 as sim3_ops
 from orb_slam3_vio_fixes_tpu_torch.optim import global_ba as gba_mod
 from orb_slam3_vio_fixes_tpu_torch.optim import pose_graph as pg
+from orb_slam3_vio_fixes_tpu_torch.parallel import sharded_ba
 from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
 from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary as voc
 from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera, project, unproject
@@ -178,9 +180,8 @@ class LoopCloser:
     def __init__(self, vocab: voc.Vocabulary, cam: Camera, max_kf: int,
                  inv_sigma2_oct, cfg: LoopConfig = LoopConfig(), bf: float = 0.0,
                  n_levels: int = 8, scale: float = 1.2, mesh=None, *, device):
-        if mesh is not None:
-            raise NotImplementedError("the multi-device global BA is not ported")
         self.device = torch.device(device)
+        self.mesh = mesh
         self.vocab = vocab
         self.cam = cam
         self.cfg = cfg
@@ -342,7 +343,12 @@ class LoopCloser:
         state = apply_correction(state, R, t, s, n_levels=self.n_levels,
                                  scale=self.scale)
         if cfg.run_gba and n_kf <= cfg.gba_max_kf:
-            state, _ = gba_mod.run_global_ba(
-                state, self.inv_sigma2_oct, self.cam, self.bf, 0,
-                n_levels=self.n_levels, scale=self.scale)
+            if self.mesh is not None:
+                state, _ = sharded_ba.distributed_global_ba(
+                    state, self.inv_sigma2_oct, self.cam, self.bf, self.mesh,
+                    n_levels=self.n_levels, scale=self.scale)
+            else:
+                state, _ = gba_mod.run_global_ba(
+                    state, self.inv_sigma2_oct, self.cam, self.bf, 0,
+                    n_levels=self.n_levels, scale=self.scale)
         return state

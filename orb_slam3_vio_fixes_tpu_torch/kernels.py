@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -111,13 +112,23 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 # Launches per kernel, counted by each wrapper where it launches its kernel
 # ("hamming_match_cols" counts the K2 launches that also reduce columns).
+# The shards of a parallel.Mesh launch from threads of their own: `count`
+# takes a lock, as `+=` from several threads can lose counts.
 LAUNCHES = {"fast_score": 0, "hamming_match": 0, "hamming_match_cols": 0}
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count(name: str, n: int = 1) -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += n
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict:
-    return dict(LAUNCHES)
+    with _LAUNCH_LOCK:
+        return dict(LAUNCHES)

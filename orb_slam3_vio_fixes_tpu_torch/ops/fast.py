@@ -71,7 +71,7 @@ def fast_score_batch(imgs: torch.Tensor) -> torch.Tensor:
     rc = kernels.library().slam_fast_score(
         imgs.data_ptr(), out.data_ptr(), B, H, W, kernels.stream_of(imgs))
     kernels.check(rc, "slam_fast_score")
-    kernels.LAUNCHES["fast_score"] += 1
+    kernels.count("fast_score")
     return out
 
 

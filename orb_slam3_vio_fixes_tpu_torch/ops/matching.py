@@ -103,8 +103,8 @@ def hamming_match(desc_q: torch.Tensor, desc_t: torch.Tensor,
         row, row + 4 * Q, row + 8 * Q, row + 12 * Q,
         col_key.data_ptr() if cols else None, kernels.stream_of(mask))
     kernels.check(rc, "slam_hamming_match")
-    kernels.LAUNCHES["hamming_match"] += 1
-    kernels.LAUNCHES["hamming_match_cols"] += int(cols)
+    kernels.count("hamming_match")
+    kernels.count("hamming_match_cols", int(cols))
     return (*outs.unbind(0), col_key[0::2] if cols else None)
 
 

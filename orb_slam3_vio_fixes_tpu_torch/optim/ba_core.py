@@ -341,28 +341,33 @@ def _mv(A, x):
 
 
 def schur_cg_solve(Hpl_f, Hpp_d, Hll_inv, bp, bl, pidx, lidx, free,
-                   cg_iters: int):
+                   cg_iters: int, psum=None):
     """Solve the Schur-reduced camera system S dx = rhs by block-Jacobi
     preconditioned CG without forming S or a (P, L) table: S v = Hpp_d v -
     Hpl Hll^-1 Hpl^T v, evaluated factor-wise with gathers and index_add.
-    Fixed poses stay at zero. Returns dx_pose (P, 6)."""
+    Fixed poses stay at zero. Returns dx_pose (P, 6).
+
+    With the factors and landmarks sharded over a mesh (parallel/sharded_ba),
+    `psum` sums each pose-space partial over the shards: one (P, 6) per CG
+    iteration and one for the right-hand side."""
     Pn = Hpp_d.shape[0]
     L = Hll_inv.shape[0]
     dev = Hpp_d.device
     zero = torch.zeros((), device=dev)
     Hlp_f = Hpl_f.transpose(1, 2)
+    ps = psum if psum is not None else (lambda x: x)
 
     def hpl_hinv_hplT(v):
         y = index_add_rows(torch.zeros((L, 3), device=dev), lidx, _mv(Hlp_f, v[pidx]))
         q = _mv(Hpl_f, _mv(Hll_inv, y)[lidx])
-        return index_add_rows(torch.zeros((Pn, 6), device=dev), pidx, q)
+        return ps(index_add_rows(torch.zeros((Pn, 6), device=dev), pidx, q))
 
     def matvec(v):
         v = torch.where(free[:, None], v, zero)
         return torch.where(free[:, None], _mv(Hpp_d, v) - hpl_hinv_hplT(v), zero)
 
     q0 = _mv(Hpl_f, _mv(Hll_inv, bl)[lidx])
-    rhs = bp - index_add_rows(torch.zeros((Pn, 6), device=dev), pidx, q0)
+    rhs = bp - ps(index_add_rows(torch.zeros((Pn, 6), device=dev), pidx, q0))
     rhs = torch.where(free[:, None], rhs, zero)
     diag_ok = (Hpp_d.abs().sum((-1, -2)) > 1e-9) & free
     Minv = inv6(torch.where(diag_ok[:, None, None], Hpp_d, torch.eye(6, device=dev)))

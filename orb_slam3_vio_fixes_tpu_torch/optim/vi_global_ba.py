@@ -1,12 +1,15 @@
 """Full-map visual-inertial bundle adjustment with a matrix-free CG Schur
-solve (port of the single-device part of
-orb_slam3_vio_fixes_tpu/optim/vi_global_ba.py; the landmark-sharded variant
-waits for the multi-device slice).
+solve (port of orb_slam3_vio_fixes_tpu/optim/vi_global_ba.py).
 
 One 15-DoF state per keyframe slot. Landmarks are Schur-eliminated; the
 reduced system carries the IMU chain's 15x15 diagonal and off-diagonal
 blocks, applied factor-wise inside the CG matvec, so S is never formed.
 Fixed iteration counts and `torch.where` selection: no host sync inside.
+
+`run_global_vi_ba_sharded` puts the landmark blocks and their reprojection
+factors on the shards of a `parallel.Mesh` and replicates the keyframe
+states and the IMU chain; every keyframe-sized reduction is summed over the
+shards (parallel/sharded_ba's traffic shape).
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import torch
 
 from orb_slam3_vio_fixes_tpu_torch.imu import preintegration as pre
 from orb_slam3_vio_fixes_tpu_torch.optim import vi_ba
+from orb_slam3_vio_fixes_tpu_torch.parallel.mesh import Mesh, P, shard_map
+from orb_slam3_vio_fixes_tpu_torch.parallel.sharded_ba import partition_layout
 from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
 from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera
 from orb_slam3_vio_fixes_tpu_torch.utils.linalg import compact_indices, index_add_rows, inv3
@@ -128,9 +133,13 @@ def _imu_blocks(R_wb, p_wb, v, bg, ba, inertial: vi_ba.VIInertialFactors, pose_f
 
 def _vi_gba_solve(x, factors: vi_ba.VIReprojFactors, inertial: vi_ba.VIInertialFactors,
                   pose_fixed, lm_fixed, bg_ref, ba_ref, cam, bf, R_cb, t_cb,
-                  cfg: VIGBAConfig):
+                  cfg: VIGBAConfig, psum=None):
     """The LM / CG loop. x = (R_wb, p_wb, v, bg, ba, lm). Returns (x',
-    inlier)."""
+    inlier). With the landmarks and their factors sharded over a mesh, x's
+    landmarks and `factors` are this shard's and `psum` sums each
+    keyframe-sized partial over the shards: the (K, 6) Schur partials per
+    CG iteration, the (K, 6, 6) + (K, 6) camera blocks and the reprojection
+    chi2 per LM iteration."""
     K = x[0].shape[0]
     L = x[5].shape[0]
     dev = x[0].device
@@ -144,12 +153,14 @@ def _vi_gba_solve(x, factors: vi_ba.VIReprojFactors, inertial: vi_ba.VIInertialF
     eye15 = torch.eye(D, device=dev)
     eye3 = torch.eye(3, device=dev)
 
+    ps = psum if psum is not None else (lambda v: v)
+
     def where_x(c, a, b):
         return tuple(torch.where(c, u, w) for u, w in zip(a, b))
 
     def robust(chi2_f, chi2_imu, inl):
-        return (torch.where(factors.valid & inl, torch.minimum(chi2_f, 4.0 * delta2),
-                            zero).sum()
+        return (ps(torch.where(factors.valid & inl, torch.minimum(chi2_f, 4.0 * delta2),
+                               zero).sum())
                 + torch.clamp(chi2_imu, max=4.0 * cfg.huber_inertial).sum())
 
     def reproj_chi2(xx, inl):
@@ -158,7 +169,7 @@ def _vi_gba_solve(x, factors: vi_ba.VIReprojFactors, inertial: vi_ba.VIInertialF
                               lm_fixed, inl, cfg)[-1]
 
     def scatter6(q):
-        return index_add_rows(torch.zeros((K, 6), device=dev), pose_idx, q)
+        return ps(index_add_rows(torch.zeros((K, 6), device=dev), pose_idx, q))
 
     def scatterL(u):
         return index_add_rows(torch.zeros((L, 3), device=dev), lm_idx, u)
@@ -182,6 +193,7 @@ def _vi_gba_solve(x, factors: vi_ba.VIReprojFactors, inertial: vi_ba.VIInertialF
                 inlier, cfg)
             Hii, Hjj, Hij, bi, bj, chi2_imu = _imu_blocks(
                 R_wb, p_wb, v, bg, ba, inertial, pose_fixed, cfg)
+            Hpp6, bp6 = ps(Hpp6), ps(bp6)
             chi2_x = robust(chi2_f, chi2_imu, inlier)
             good = chi2_x <= chi2_best
             x_best = where_x(good, x, x_best)
@@ -334,3 +346,92 @@ def run_global_vi_ba(state: ms.MapState, inertial: vi_ba.VIInertialFactors,
     state.kf_obs.copy_(torch.where(drop, torch.full_like(state.kf_obs, -1), state.kf_obs))
     state = ms.update_landmark_stats(state._replace(epoch=state.epoch + 1), n_levels, scale)
     return state, n_inl
+
+
+def _sharded_vi_gba_fn(mesh: Mesh, axis: str, block: int, cfg: VIGBAConfig, out_device):
+    """The per-shard program of run_global_vi_ba_sharded: the shared
+    _vi_gba_solve on this shard's landmark block and factors, the keyframe
+    states and the IMU chain replicated."""
+
+    def body(ax, R_wb, p_wb, vel, bg, ba, lm_loc, lm_fixed_loc, pose_fixed, f_pose, f_lm,
+             f_uvr, f_is2, f_valid, inertial, cam, bf, R_cb, t_cb, bg_ref, ba_ref):
+        # pad factors carry another shard's landmark: clamp their local index
+        local = (f_lm - ax.axis_index * block).clamp(0, block - 1)
+        factors = vi_ba.VIReprojFactors(f_pose, local, f_uvr, f_is2, f_valid)
+        x, inlier = _vi_gba_solve((R_wb, p_wb, vel, bg, ba, lm_loc), factors, inertial,
+                                  pose_fixed, lm_fixed_loc, bg_ref, ba_ref, cam, bf, R_cb,
+                                  t_cb, cfg, psum=ax.psum)
+        n_inl = ax.psum((f_valid & inlier).sum())
+        return (*x, inlier, n_inl)
+
+    return shard_map(
+        body, mesh,
+        in_specs=(P(), P(), P(), P(), P(),           # keyframe states (replicated)
+                  P(axis), P(axis),                   # landmark block, its fixed mask
+                  P(),                                # pose_fixed
+                  P(axis), P(axis), P(axis), P(axis), P(axis),  # factors
+                  P(), P(), P(), P(), P(), P(), P()),  # IMU chain, camera, extrinsics, refs
+        out_specs=(P(), P(), P(), P(), P(), P(axis), P(axis), P()),
+        out_device=out_device)
+
+
+def run_global_vi_ba_sharded(state: ms.MapState, inertial: vi_ba.VIInertialFactors,
+                             inv_sigma2_oct: torch.Tensor, cam: Camera, bf,
+                             calib: pre.ImuCalib, pose_fixed_in: torch.Tensor, mesh: Mesh,
+                             cfg: VIGBAConfig = VIGBAConfig(), n_levels: int = 8,
+                             scale: float = 1.2, axis: str = "lm"):
+    """Landmark-sharded full-map VI BA over a mesh: run_global_vi_ba's solve
+    with the landmark blocks and their reprojection factors on the shards
+    (no compaction: the (K * N) factor table, laid out as
+    parallel/sharded_ba.partition_problem lays it), the keyframe states and
+    the O(K) IMU chain on every shard. Outliers are unbound in the original
+    (K, N) order from the reprojection chi2 re-evaluated on the corrected
+    state. Updates `state` in place and returns (state, n_inlier_factors)."""
+    K, N = state.kf_obs.shape
+    L = state.lm_pos.shape[0]
+    dev = state.kf_R.device
+    n_dev = mesh.shape[axis]
+    R_cb, t_cb = calib.cam_from_body()
+    window = torch.arange(K, device=dev)
+    pose_idx, lm_idx, uvr, inv_s2, valid = ms.ba_factors_from_map(
+        state, window, inv_sigma2_oct)
+    n_obs = ms.landmark_obs_count(state)
+    valid = valid & (n_obs[lm_idx] >= 2)
+    pose_fixed = pose_fixed_in | ~state.kf_valid
+    lm_fixed = (n_obs < 2) | ~state.lm_valid
+    # host-side partition: L padded to a multiple of the shards, factors
+    # grouped by the shard owning their landmark
+    idx_out, valid_out, Lp = partition_layout(lm_idx.cpu().numpy(), valid.cpu().numpy(),
+                                              L, n_dev)
+    take = torch.from_numpy(idx_out).to(dev)
+    pad = Lp - L
+    lm_pad = torch.cat([state.lm_pos, state.lm_pos.new_zeros((pad, 3))])
+    lm_fixed_pad = torch.cat([lm_fixed, lm_fixed.new_ones(pad)])
+    R_wb, p_wb = _body_states(state, R_cb, t_cb)
+    run = _sharded_vi_gba_fn(mesh, axis, Lp // n_dev, cfg, dev)
+    R_wb2, p_wb2, v2, bg2, ba2, lm2, _, _ = run(
+        R_wb, p_wb, state.kf_vel, state.kf_bg, state.kf_ba, lm_pad, lm_fixed_pad,
+        pose_fixed, pose_idx[take], lm_idx[take], uvr[take], inv_s2[take],
+        torch.from_numpy(valid_out).to(dev), inertial, cam, bf, R_cb, t_cb,
+        state.kf_bg, state.kf_ba)
+    kf_R, kf_t = _cam_states(R_wb2, p_wb2, R_cb, t_cb)
+    upd = state.kf_valid & ~pose_fixed
+    state.lm_pos.copy_(torch.where(lm_fixed[:, None], state.lm_pos, lm2[:L]))
+    state.kf_R.copy_(torch.where(upd[:, None, None], kf_R, state.kf_R))
+    state.kf_t.copy_(torch.where(upd[:, None], kf_t, state.kf_t))
+    state.kf_vel.copy_(torch.where(upd[:, None], v2, state.kf_vel))
+    state.kf_bg.copy_(torch.where(upd[:, None], bg2, state.kf_bg))
+    state.kf_ba.copy_(torch.where(upd[:, None], ba2, state.kf_ba))
+    # outliers unbound in the original (K, N) order: the reprojection chi2
+    # re-evaluated on the corrected state
+    R_wb3, p_wb3 = _body_states(state, R_cb, t_cb)
+    factors = vi_ba.VIReprojFactors(pose_idx, lm_idx, uvr, inv_s2, valid)
+    chi2 = _reproj_blocks(R_wb3, p_wb3, state.lm_pos, factors, cam, bf, R_cb, t_cb,
+                          pose_fixed, lm_fixed,
+                          torch.ones(valid.shape[0], dtype=torch.bool, device=dev), cfg)[-1]
+    is_stereo = uvr[:, 2] >= 0.0
+    inlier = chi2 <= torch.where(is_stereo, cfg.chi2_stereo, cfg.chi2_mono).to(torch.float32)
+    drop = (valid & ~inlier).reshape(K, N)
+    state.kf_obs.copy_(torch.where(drop, torch.full_like(state.kf_obs, -1), state.kf_obs))
+    state = ms.update_landmark_stats(state._replace(epoch=state.epoch + 1), n_levels, scale)
+    return state, (valid & inlier).sum()

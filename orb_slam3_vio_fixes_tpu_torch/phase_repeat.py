@@ -4,6 +4,7 @@
     python -m orb_slam3_vio_fixes_tpu_torch.phase_repeat stereo_inertial [N [variant]]
     python -m orb_slam3_vio_fixes_tpu_torch.phase_repeat si_atlas [N]
     python -m orb_slam3_vio_fixes_tpu_torch.phase_repeat determinism
+    python -m orb_slam3_vio_fixes_tpu_torch.phase_repeat mesh [N]
 
 `app`: the facade's direct IMU_STEREO loop (phase 14's frames) and phase 15
 (the same frames through apps.main_template and the PipelineRunner) in
@@ -20,7 +21,9 @@ keyframe poses and the tracker's pose, then whether every run gave the
 same bytes and the first frame where each run parts from run 0. `determinism`: phase 5's
 and phase 7's tracking passes with PyTorch's deterministic algorithms on,
 on with the fill of uninitialised memory, and off, in turns: fps, frame
-p50 / p95, ATE and the digest of each. Needs a CUDA device; ~30 s
+p50 / p95, ATE and the digest of each. `mesh`: phase 20 (a), the loop
+scene with its global BAs sharded over a 4-shard mesh of the card, N times
+(default 3), each run's digest as above. Needs a CUDA device; ~30 s
 per app or direct run, ~60 s per stereo_inertial run, ~70-100 s per
 si_atlas run, ~8 min for determinism.
 
@@ -321,7 +324,18 @@ def _determinism(cs, dev, card) -> None:
     tud.fill_uninitialized_memory = False
 
 
-TARGETS = ("app", "stereo_inertial", "si_atlas", "determinism")
+def _mesh(cs, dev, card, n_runs: int) -> None:
+    """Phase 20 (a), the loop scene with a LoopCloser on a 4-shard mesh of
+    the card, n_runs times."""
+    from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary
+
+    vocab = vocabulary.default_vocabulary(dev)
+    _repeat("mesh", n_runs, lambda: cs.mesh_loop(vocab, dev, card), "build_kf4_tracker",
+            lambda tr: f"keyframes={len(tr.kf_order)} "
+                       f"corrections={tr.loop_closer.n_corrections}")
+
+
+TARGETS = ("app", "stereo_inertial", "si_atlas", "determinism", "mesh")
 
 
 def main(argv=None) -> int:
@@ -349,6 +363,8 @@ def main(argv=None) -> int:
         _stereo_inertial(cs, dev, card, n_runs, variant)
     elif argv[0] == "si_atlas":
         _si_atlas(cs, dev, card, n_runs)
+    elif argv[0] == "mesh":
+        _mesh(cs, dev, card, n_runs)
     else:
         _determinism(cs, dev, card)
     return 0

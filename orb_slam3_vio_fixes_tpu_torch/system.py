@@ -7,8 +7,9 @@ IMU_MONOCULAR, IMU_STEREO and IMU_RGBD. Distorted pin-hole rigs are
 rectified (stereo) or undistorted (monocular, RGB-D) per frame on the
 device. A KannalaBrandt8 stereo rig is tracked unrectified: both camera
 models and T_c1_c2 go to the tracker, whose frames are built by ray
-triangulation. The multi-device `mesh` waits for a later slice and raises
-NotImplementedError.
+triangulation. With a `parallel.Mesh` (`mesh=`) the loop closer's global
+BA, the inertial trackers' full-map VI BA and the relocaliser's whole-map
+search run sharded over it; the mesh must name the facade's device.
 
 The facade runs on the card unless the caller passes `device="cpu"`; it
 raises when CUDA is absent rather than falling back. It switches PyTorch to
@@ -32,6 +33,7 @@ from orb_slam3_vio_fixes_tpu_torch.imu import preintegration as pre
 from orb_slam3_vio_fixes_tpu_torch.io import trajectory as traj_io
 from orb_slam3_vio_fixes_tpu_torch.io.settings import Settings, load_settings
 from orb_slam3_vio_fixes_tpu_torch.ops import orb
+from orb_slam3_vio_fixes_tpu_torch.parallel.mesh import Mesh
 from orb_slam3_vio_fixes_tpu_torch.ops import rectify as rec
 from orb_slam3_vio_fixes_tpu_torch.sensors import Sensor
 from orb_slam3_vio_fixes_tpu_torch.slam_map import atlas as atlas_mod
@@ -51,6 +53,20 @@ def _device(device) -> torch.device:
     return dev
 
 
+def _check_mesh(mesh, device: torch.device):
+    """A mesh must be a parallel.Mesh with at least one shard on `device`:
+    the map stays there, and nothing is moved to another device quietly."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.Mesh, got {type(mesh).__name__}")
+
+    def index(d):
+        return d.index if d.index is not None or d.type != "cuda" else \
+            torch.cuda.current_device()
+
+    if not any(d.type == device.type and index(d) == index(device) for d in mesh.devices):
+        raise ValueError(f"no shard of {mesh} is on the facade's device {device}")
+
+
 class SLAMSystem:
     """Tracker + loop closing + relocalisation + Atlas for one sensor setup.
 
@@ -58,7 +74,8 @@ class SLAMSystem:
     vocab: a `Vocabulary`, "default" (the checked-in 10^5-word artifact) or
     None (no place recognition); map_cfg / tracker_cfg override the
     configuration derived from the settings; device: "cuda" (the default)
-    or "cpu".
+    or "cpu"; mesh: a `parallel.Mesh` that shards the global BAs and the
+    relocaliser's whole-map search (at least one shard on `device`).
     """
 
     def __init__(self, settings, sensor: Sensor, vocab="default",
@@ -66,9 +83,10 @@ class SLAMSystem:
                  tracker_cfg: Optional[trk.TrackerConfig] = None, mesh=None,
                  device="cuda"):
         determinism.enable()
-        if mesh is not None:
-            raise NotImplementedError("the multi-device mesh is not ported yet")
         self.device = _device(device)
+        if mesh is not None:
+            _check_mesh(mesh, self.device)
+        self.mesh = mesh
         if isinstance(settings, str):
             settings = load_settings(settings, sensor)
         self.settings: Settings = settings
@@ -126,8 +144,8 @@ class SLAMSystem:
                 lc_mod.LoopConfig(fix_scale=sensor != Sensor.MONOCULAR,
                                   inertial=sensor.has_imu, run_gba=not sensor.has_imu),
                 bf=(s.bf or 0.0) if not sensor.is_monocular else 0.0,
-                n_levels=cfg.orb.n_levels, scale=cfg.orb.scale, device=dev)
-            reloc = rl_mod.Relocalizer(vocab, lambda: closer.db, device=dev)
+                n_levels=cfg.orb.n_levels, scale=cfg.orb.scale, mesh=mesh, device=dev)
+            reloc = rl_mod.Relocalizer(vocab, lambda: closer.db, mesh=mesh, device=dev)
             atl = atlas_mod.Atlas(map_cfg, vocab, s.cam1, inv_s2,
                                   atlas_mod.AtlasConfig(fix_scale=not sensor.is_monocular,
                                                         inertial=sensor.has_imu), device=dev)

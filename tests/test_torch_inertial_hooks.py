@@ -314,3 +314,41 @@ def test_post_merge_vi_ba_like_reference(seq, run, monkeypatch):
     tt._post_merge(new_kf + 5, 5, run["n_kf"], adj + 5, fixed + 5)
     assert sorted(tt.kf_windows) == sorted(k + 5 for k in run["windows"])
     assert len(calls) == 1 and len(masks) == n_masks
+
+
+def test_post_loop_gba_over_the_closer_mesh(seq, run, monkeypatch):
+    """_post_loop_gba with a loop closer that carries a parallel.Mesh: the
+    full-map VI BA runs landmark-sharded over it (the JAX tracker's
+    inertial_tracking.py:970-978), from the same state as an unsharded
+    tracker, and lands within test_vi_gba_sharded_parity_8_devices's bars
+    of it: keyframe positions within 2e-3 m, relative-rotation traces above
+    3 - 1e-4, the landmark median within 1e-3 m."""
+    from orb_slam3_vio_fixes_tpu_torch.optim import vi_global_ba as tvg
+    from orb_slam3_vio_fixes_tpu_torch.parallel import Mesh
+
+    fields, order = run["fields"], run["kf_order"]
+    sharded = []
+    real = tvg.run_global_vi_ba_sharded
+    monkeypatch.setattr(tvg, "run_global_vi_ba_sharded",
+                        lambda *a, **k: sharded.append(a[7]) or real(*a, **k))
+    out = {}
+    for name, mesh in (("single", None), ("mesh", Mesh(["cpu"] * 2))):
+        closer = CountingCloser(len(fields["kf_valid"]))
+        closer.mesh = mesh
+        tt = port_tracker(seq, loop_closer=closer)
+        tt.state = convert.map_state_from_numpy({f: a.copy() for f, a in fields.items()},
+                                                "cpu")
+        tt.kf_windows = dict(run["windows"])
+        tt.kf_order, tt.n_kf, tt.n_lm = list(order), run["n_kf"], run["n_lm"]
+        tt.imu_ready = True
+        tt._post_loop_gba(order[-1])
+        out[name] = convert.map_state_to_numpy(tt.state)
+    assert len(sharded) == 1 and isinstance(sharded[0], Mesh)
+    a, b = out["mesh"], out["single"]
+    live = np.asarray(order)
+    np.testing.assert_allclose(a["kf_t"][live], b["kf_t"][live], atol=2e-3)
+    for k in live:
+        assert np.trace(a["kf_R"][k] @ b["kf_R"][k].T) > 3 - 1e-4
+    assert np.abs(a["kf_t"][live] - fields["kf_t"][live]).max() > 1e-6
+    lv = fields["lm_valid"]
+    assert np.median(np.linalg.norm(a["lm_pos"] - b["lm_pos"], axis=-1)[lv]) < 1e-3

@@ -296,38 +296,31 @@ def _gravity_apart_deg(R_a, R_b):
     return np.degrees(np.arctan2(np.linalg.norm(np.cross(a, b), axis=-1), (a * b).sum(-1)))
 
 
-def test_pre_init_parity_with_reference():
-    """Where the SI loop's gravity offset against the JAX package arises:
-    both StereoInertialTrackers on test_inertial_loop_closes_early's frames
-    (352x240, its configuration with the default search radii, no closer)
-    up to the IMU initialisation.
+def _leaves(nt) -> dict:
+    return {f: np.asarray(x) for f, x in nt._asdict().items()}
 
-    The JAX tracker's pre-init velocity model comes from the previous
-    frame's packed pose only: after a reference-keyframe fallback it has
-    none, the next frame's motion model starts from the last pose and falls
-    back again, so here it drops the velocity on every second frame. The
-    port keeps track_step_impl's own (ROADMAP queue 3, deliberate
-    differences); without the JAX rule the pre-init camera centres are 3.8
-    cm apart by frame 10 (measured with run_loop's (15, 30) px radii). With the JAX rule put on the port's tracker the two agree: the
-    same velocity drops, keyframes and initialisation frame, and pre-init
-    keyframe centres within 5e-3 m (test_torch_slice.py's tolerance;
-    measured 4.0 mm). From the JAX tracker's own pre-init state, the port's
-    initialisation agrees with JAX's within 0.1 degree of body-frame gravity
-    up to the gravity alignment (measured 1.4e-5 degree).
 
-    Where they part: the initialisation's window VI BA (its problem captured
-    from the JAX tracker's run). Its 24 landmarks seen in the window by one
-    keyframe's monocular rows only have a rank-2 3x3 block, whose 1e-6
-    damping float32 cannot hold. JAX's LU inverse of some of them is not
-    finite, so every LM step is rejected and its BA returns its input (a
-    reference fault); the port's adjugate inverse stays finite, its steps
-    are accepted and those landmarks leave for ~1e19 m (a port fault). Both
-    pinned here, with the parity that holds once those landmarks are held:
-    the two solvers within 4.5e-4 degree and 2.9e-6 m, the same inlier
-    mask (ROADMAP queue 3). Printed: the gravity apart after each of the
-    initialisation's two VI BAs, from the JAX tracker's state and from each
-    tracker's own. About 60 s on one CPU worker, most of it the JAX
-    tracker's compiles."""
+def _port_window_solve(prob, cfg, K, lm_fixed):
+    """The port's solve_vi_ba on a captured JAX window problem with the
+    landmark mask `lm_fixed`: (R_wb, p_wb, lm, inlier) as numpy."""
+    from orb_slam3_vio_fixes_tpu_torch import convert
+    from orb_slam3_vio_fixes_tpu_torch.optim import vi_ba
+
+    p = convert.vi_problem_from_numpy(
+        _leaves(prob.states), np.asarray(prob.lm), np.asarray(prob.lm_valid), lm_fixed,
+        _leaves(prob.reproj), _leaves(prob.inertial), _leaves(prob.prior),
+        Camera.pinhole(K[0, 0], K[1, 1], K[0, 2], K[1, 2]), prob.bf,
+        np.asarray(prob.R_cb), np.asarray(prob.t_cb), "cpu")
+    out, inlier, _ = vi_ba.solve_vi_ba(p, vi_ba.VIBAConfig(**cfg._asdict()))
+    return out.states.R_wb.numpy(), out.states.p_wb.numpy(), out.lm.numpy(), inlier.numpy()
+
+
+@pytest.fixture(scope="module")
+def pre_init_runs():
+    """Both StereoInertialTrackers up to the IMU initialisation on
+    test_inertial_loop_closes_early's frames, with the JAX initialisation's
+    window VI BA problem captured (see test_pre_init_parity_with_reference);
+    most of it the JAX tracker's compiles."""
     import jax
     import jax.numpy as jnp
 
@@ -338,8 +331,6 @@ def test_pre_init_parity_with_reference():
     from orb_slam3_vio_fixes_tpu.optim import vi_ba as jvi
     from orb_slam3_vio_fixes_tpu.slam_map import map_state as jms
     from orb_slam3_vio_fixes_tpu.utils.cameras import Camera as JCamera
-    from orb_slam3_vio_fixes_tpu_torch import convert
-    from orb_slam3_vio_fixes_tpu_torch.optim import vi_ba
 
     s = make_seq(68, 52)
     K, bf = s.K, s.K[0, 0] * s.baseline
@@ -422,6 +413,7 @@ def test_pre_init_parity_with_reference():
             finally:
                 jit_.inertial_local_ba = jit_local_ba
             init["after"] = np.array(tr.state.kf_R, copy=True)
+            init["lm_after"] = np.array(tr.state.lm_pos[tr.state.lm_valid], copy=True)
 
         tr._initialize_imu = captured
         i = 0
@@ -432,6 +424,50 @@ def test_pre_init_parity_with_reference():
             i += 1
             assert i < 30, f"{name} never initialised its IMU"
         runs[name] = (i - 1, list(tr.kf_order), init, vel_none, snaps)
+    return dict(runs=runs, problems=problems, K=K, port_tracker=port_tracker, watch=watch)
+
+
+def test_pre_init_parity_with_reference(pre_init_runs):
+    """Where the SI loop's gravity offset against the JAX package arises:
+    both StereoInertialTrackers on test_inertial_loop_closes_early's frames
+    (352x240, its configuration with the default search radii, no closer)
+    up to the IMU initialisation.
+
+    The JAX tracker's pre-init velocity model comes from the previous
+    frame's packed pose only: after a reference-keyframe fallback it has
+    none, the next frame's motion model starts from the last pose and falls
+    back again, so here it drops the velocity on every second frame. The
+    port keeps track_step_impl's own (ROADMAP queue 3, deliberate
+    differences); without the JAX rule the pre-init camera centres are 3.8
+    cm apart by frame 10 (measured with run_loop's (15, 30) px radii). With the JAX rule put on the port's tracker the two agree: the
+    same velocity drops, keyframes and initialisation frame, and pre-init
+    keyframe centres within 5e-3 m (test_torch_slice.py's tolerance;
+    measured 4.0 mm). From the JAX tracker's own pre-init state, the port's
+    initialisation agrees with JAX's within 0.1 degree of body-frame gravity
+    up to the gravity alignment (measured 1.4e-5 degree).
+
+    Where they part: the initialisation's window VI BA (its problem captured
+    from the JAX tracker's run). Its 24 landmarks seen in the window by one
+    keyframe's monocular rows only have a rank-2 3x3 block, whose 1e-6
+    damping float32 cannot hold. JAX's LU inverse of some of them is not
+    finite, so every LM step is rejected and its BA returns its input (a
+    reference fault); the port's adjugate inverse stays finite, its steps
+    are accepted and those landmarks leave for ~1e19 m (a port fault). Both
+    pinned here, with the parity that holds once those landmarks are held:
+    the two solvers within 4.5e-4 degree and 2.9e-6 m, the same inlier
+    mask (ROADMAP queue 3). Printed: the gravity apart after each of the
+    initialisation's two VI BAs, from the JAX tracker's state and from each
+    tracker's own. About 60 s on one CPU worker (the fixture), most of it
+    the JAX tracker's compiles. The port's inertial_local_ba holds those
+    landmarks (test_init_window_ba_holds_single_view_landmarks); the
+    solve_vi_ba runs here take the captured problem as it is."""
+    import jax.numpy as jnp
+
+    from orb_slam3_vio_fixes_tpu.optim import vi_ba as jvi
+    from orb_slam3_vio_fixes_tpu_torch import convert
+
+    runs, problems, K = (pre_init_runs[k] for k in ("runs", "problems", "K"))
+    port_tracker, watch = pre_init_runs["port_tracker"], pre_init_runs["watch"]
     (j_at, j_order, j_init, j_vel, j_snaps), (p_at, p_order, p_init, p_vel, _) = (
         runs["jax"], runs["port"])
     assert sum(j_vel[1:]) >= 3 and j_vel == p_vel
@@ -462,16 +498,9 @@ def test_pre_init_parity_with_reference():
 
     # the window VI BA on the JAX problem (the first of the initialisation)
     prob, cfg = problems[0]
-    leaves = lambda nt: {f: np.asarray(x) for f, x in nt._asdict().items()}  # noqa: E731
 
     def port_solve(lm_fixed):
-        p = convert.vi_problem_from_numpy(
-            leaves(prob.states), np.asarray(prob.lm), np.asarray(prob.lm_valid), lm_fixed,
-            leaves(prob.reproj), leaves(prob.inertial), leaves(prob.prior),
-            Camera.pinhole(K[0, 0], K[1, 1], K[0, 2], K[1, 2]), prob.bf,
-            np.asarray(prob.R_cb), np.asarray(prob.t_cb), "cpu")
-        out, inlier, _ = vi_ba.solve_vi_ba(p, vi_ba.VIBAConfig(**cfg._asdict()))
-        return out.states.R_wb.numpy(), out.states.p_wb.numpy(), out.lm.numpy(), inlier.numpy()
+        return _port_window_solve(prob, cfg, K, lm_fixed)
 
     j_out, j_inl, _ = jvi.solve_vi_ba(prob, cfg)
     j_R, j_p = np.asarray(j_out.states.R_wb), np.asarray(j_out.states.p_wb)
@@ -507,3 +536,45 @@ def test_pre_init_parity_with_reference():
     assert moved > 0.1
     assert held_apart < 0.1 and np.abs(p_p - j_p).max() < 5e-3
     np.testing.assert_array_equal(p_inl, np.asarray(j_inl))
+
+
+def test_init_window_ba_holds_single_view_landmarks(pre_init_runs):
+    """The port's repair of the fault pinned above: the JAX initialisation's
+    window VI BA problem through the port's hold rule
+    (inertial_tracking.single_view_landmarks, which the stereo-inertial
+    initialisation's inertial_local_ba applies on the device) and solved.
+    The rule holds exactly the rank-2 landmarks of the test above; every
+    landmark stays finite and within 1e3 m; and the solve agrees with JAX's
+    on the same problem with the same landmarks held: body-frame gravity
+    within 0.1 degree, positions within 5e-3 m, the same inlier mask. The
+    port tracker's own initialisation leaves every live landmark within
+    1e3 m too."""
+    import jax.numpy as jnp
+
+    from orb_slam3_vio_fixes_tpu.optim import vi_ba as jvi
+    from orb_slam3_vio_fixes_tpu_torch.optim import vi_ba
+
+    prob, cfg = pre_init_runs["problems"][0]
+    K = pre_init_runs["K"]
+    rp = _leaves(prob.reproj)
+    n_lm, n_states = np.asarray(prob.lm).shape[0], np.asarray(prob.states.R_wb).shape[0]
+    reproj = vi_ba.VIReprojFactors(**{f: torch.from_numpy(np.array(a)) for f, a in rp.items()})
+    rule = it.single_view_landmarks(reproj, n_lm, n_states).numpy()
+    valid, lm_idx = rp["valid"], rp["lm_idx"]
+    seen = np.zeros((n_lm, n_states), bool)
+    seen[lm_idx[valid], rp["state_idx"][valid]] = True
+    stereo = np.bincount(lm_idx[valid & (rp["uvr"][:, 2] >= 0)], minlength=n_lm)
+    np.testing.assert_array_equal(rule, (seen.sum(1) == 1) & (stereo == 0))
+    held = np.asarray(prob.lm_fixed) | rule
+    p_R, p_p, p_lm, p_inl = _port_window_solve(prob, cfg, K, held)
+    j_out, j_inl, _ = jvi.solve_vi_ba(prob._replace(lm_fixed=jnp.asarray(held)), cfg)
+    j_R, j_p = np.asarray(j_out.states.R_wb), np.asarray(j_out.states.p_wb)
+    apart = float(_gravity_apart_deg(p_R, j_R).max())
+    print(f"init window VI BA, port's hold rule: {int(rule.sum())} landmarks held, "
+          f"|lm| max {float(np.abs(p_lm).max())!r} m, gravity apart from JAX {apart!r} deg, "
+          f"positions {float(np.abs(p_p - j_p).max())!r} m")
+    assert np.isfinite(p_lm).all() and np.abs(p_lm).max() < 1e3
+    assert apart < 0.1 and np.abs(p_p - j_p).max() < 5e-3
+    np.testing.assert_array_equal(p_inl, np.asarray(j_inl))
+    lm_after = pre_init_runs["runs"]["port"][2]["lm_after"]
+    assert np.isfinite(lm_after).all() and np.abs(lm_after).max() < 1e3

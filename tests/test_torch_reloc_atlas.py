@@ -204,6 +204,47 @@ def test_reloc_attempt_agrees(scene, jax_map, monkeypatch):
     assert np.linalg.norm(C - sc["t_wc"][6]) < 0.05
 
 
+def test_relocalize_global_agrees(scene, jax_map, monkeypatch):
+    """The mesh path (Relocalizer(mesh=...)._relocalize_global) on the JAX
+    tracker's map and the frame at pose 6: the sharded whole-map search
+    binds the same landmarks as the JAX package's on its 8 virtual devices
+    (exact), and with the PnP samples drawn by jax.random under the JAX
+    relocaliser's key chain the relocalised pose agrees within 1e-4 and the
+    inlier count within 2; back at pose 6 within 5 cm."""
+    from jax.sharding import Mesh as JMesh
+
+    from orb_slam3_vio_fixes_tpu.frontend.frame import FrameData as JFrame
+    from orb_slam3_vio_fixes_tpu.parallel import sharded_matching as jsm
+    from orb_slam3_vio_fixes_tpu_torch.parallel import Mesh
+    from orb_slam3_vio_fixes_tpu_torch.parallel import sharded_matching as tsm
+
+    sc, m = scene["reloc"], jax_map
+    jstate, tstate = _jstate(m["fields"]), convert.map_state_from_numpy(m["fields"], "cpu")
+    jframe = JFrame(**{f: jnp.asarray(a) for f, a in m["frame"].items()})
+    tframe = convert.frame_from_numpy(m["frame"], "cpu")
+    jmesh = JMesh(np.array(jax.devices()[:8]), ("db",))
+    tmesh = Mesh(["cpu"] * 8, ("db",))
+    jids = np.asarray(jsm.sharded_global_bind(jframe.desc, jframe.valid, jstate.lm_desc,
+                                              jstate.lm_valid, jmesh, axis="db"))
+    tids = tsm.sharded_global_bind(tframe.desc, tframe.valid, tstate.lm_desc,
+                                   tstate.lm_valid, tmesh, axis="db").numpy()
+    np.testing.assert_array_equal(tids, jids)
+    assert (tids >= 0).sum() >= trl.RelocConfig().min_bow_matches
+    jrel = jrl.Relocalizer(sc["vocab"], lambda: None, mesh=jmesh)
+    trel = trl.Relocalizer(sc["tvocab"], lambda: None, mesh=tmesh, device="cpu")
+    bf = FX * BASELINE
+    jout = jrel._relocalize_global(jstate, jframe, JCAM, jnp.float32(bf), m["cfg"])
+    jax_pnp_draws(monkeypatch, jax.random.split(jax.random.PRNGKey(13))[1], per_call=False)
+    tout = trel._relocalize_global(tstate, tframe, TCAM, bf, port_cfg(m["cfg"]))
+    assert jout is not None and tout is not None
+    assert trel.n_success_global == jrel.n_success_global == 1
+    np.testing.assert_allclose(tout[0].numpy(), np.asarray(jout[0]), atol=1e-4)
+    np.testing.assert_allclose(tout[1].numpy(), np.asarray(jout[1]), atol=1e-4)
+    assert abs(tout[3] - jout[3]) <= 2
+    C = -tout[0].numpy().T @ tout[1].numpy()
+    assert np.linalg.norm(C - sc["t_wc"][6]) < 0.05
+
+
 @pytest.mark.parametrize("s_a", [1.0, 1.05])
 def test_merge_maps_agrees(jax_map, s_a):
     m = jax_map

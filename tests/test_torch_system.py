@@ -48,6 +48,7 @@ from orb_slam3_vio_fixes_tpu_torch.io import synthetic
 from orb_slam3_vio_fixes_tpu_torch.io import trajectory as ttraj
 from orb_slam3_vio_fixes_tpu_torch.ops import orb
 from orb_slam3_vio_fixes_tpu_torch.ops import rectify as trec
+from orb_slam3_vio_fixes_tpu_torch.parallel import Mesh
 from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
 from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary as voc
 
@@ -309,9 +310,13 @@ def test_sensor_dispatch_guard(settings_path, monkeypatch, tmp_path):
     kb8 = sysm.SLAMSystem(os.path.join(CFG, "TUM-VI.yaml"), sysm.Sensor.IMU_STEREO,
                           vocab=None, device="cpu")
     assert kb8.tracker.rig is not None and kb8._rect_maps is None
-    with pytest.raises(NotImplementedError):
+    # a mesh is a parallel.Mesh with a shard on the facade's device
+    with pytest.raises(TypeError):
         sysm.SLAMSystem(settings_path, sysm.Sensor.STEREO, vocab=None, mesh=object(),
                         device="cpu")
+    with pytest.raises(ValueError, match="device"):
+        sysm.SLAMSystem(settings_path, sysm.Sensor.STEREO, vocab=None,
+                        mesh=Mesh(["meta"] * 2), device="cpu")
     # the card is the default, with no fallback when CUDA is absent
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for sensor in (sysm.Sensor.STEREO, sysm.Sensor.MONOCULAR, sysm.Sensor.IMU_MONOCULAR):
