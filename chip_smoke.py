@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero). Phases 1-5 run
-in this process; phases 7-20 run meanwhile in five worker processes on the
+in this process; phases 7-22 run meanwhile in six worker processes on the
 same card, grouped as WORKERS says, each group in its order; phase 6 runs
 last, once every worker has ended:
   1. card facts (nvidia-smi name and power limit); no CUDA -> exit non-zero;
@@ -161,9 +161,36 @@ last, once every worker has ended:
      distributed BA step twice on one input, byte-identical. Prints ms per
      sharded and unsharded GBA and per sharded search, launches and peak
      device memory.
+ 21. the marathon: tests/test_marathon.py at its own size (lifetime.py):
+     2,000 frames of 240x352 stereo, 384 features, 4 levels (2.5 laps of a
+     loop circle, 12 blank frames, 150 frames of a disconnected world, 12
+     blank frames, 3.2 more laps), rendered as uint8 in spawned processes
+     ahead of the tracker, through a StereoTracker with a LoopCloser and an
+     Atlas on a vocabulary trained on the card from 8 phase-A frames; then
+     its first 500 frames again on a second tracker, which must give the
+     same poses bit for bit. The test's gates: tracking OK at the end, >= 2
+     loop corrections, >= 1 merge, keyframes landed in reused slots, a
+     keyframe tier <= 512, the late median frame time <= 2x the early one
+     (the last 220 frames but 20 against frames 300-500 of the second run,
+     both read at the end of the run), >= 95% of circle frames posed,
+     circle ATE < 0.5 m. The test's 220 live keyframes is reported, not
+     gated (the JAX package's own run ends at 454); culling must remove at
+     least the JAX package's 18 keyframes (lifetime.JAX_MAR_CULLED). Prints
+     the test's [marathon] line, the capacity tiers visited, fps per
+     200-frame block, p50 / p95 / max, ms per correction and per merge,
+     K1 / K2 launches and peak device memory; K1 exact on a marathon atlas
+     pair (B = 2, 4 levels), K2 on the densest loop verification and merge
+     verification masks of the run and the densest local-map search mask
+     of a fresh tracker's first 40 frames;
+ 22. the map's other lifetime tests at their own sizes and bars
+     (lifetime.py): test_kf_culling's culling run, test_slot_reuse (300
+     frames at 48 slots), test_noise_robustness's tracking run clean and
+     degraded, test_retrieval_pr's 256-keyframe recall and 1,024-keyframe
+     grouped query; K1 exact on the culling scene's atlases, K2 on its
+     densest local-map search mask.
 Phase 14 also runs MONOCULAR (40 frames) and IMU_MONOCULAR (60) through
-track_monocular. Each of phases 8-17 and 20 prints its K1/K2 launches and peak
-device memory; phases 18-19 print their launches per pass and mode. The whole
+track_monocular. Each of phases 8-17 and 20-22 prints its K1/K2 launches and
+peak device memory; phases 18-19 print their launches per pass and mode. The whole
 script runs in PyTorch's deterministic mode
 (utils/determinism.py, switched on before any CUDA work): one answer per
 input, so a gate passes or fails the same way on every run of one build.
@@ -180,6 +207,7 @@ import struct
 import subprocess
 import sys
 import time
+import types
 from unittest import mock
 
 import numpy as np
@@ -384,6 +412,14 @@ FISHEYE_DEPTH_REL = 0.15
 # stamps start here (nanoseconds).
 APP_T0_NS = 10**9
 
+# The K1 launches of the marathon: every frame (blanks too) of its run, of
+# the early window's second run and of the capture pass, and the eight
+# phase-A frames the vocabulary is trained from.
+MARATHON_VOCAB_FRAMES = 8
+# Phase 21 takes its local-map search mask for K2 from a fresh tracker's
+# first frames, after the timed runs.
+MARATHON_CAPTURE_FRAMES = 40
+
 # The card's peaks for the bounds: HBM3 rate of the H100 SXM, and its INT32
 # rate, a quarter of the 67 TFLOP/s float32 rate (an FMA counts 2 flops, and
 # an SM has 64 INT32 lanes beside 128 FP32 lanes).
@@ -520,12 +556,15 @@ def build_tracker(seq, device, **kw):
                                   tracker_config(seq), device=device, **kw)
 
 
-def atlases_of(seq, i, device):
+def atlases_of(seq, i, device, n_levels: int = 8):
+    """Frame i's (2, H_atlas, W) pyramid atlas pair, as the frame build makes
+    it for K1."""
     from orb_slam3_vio_fixes_tpu_torch.ops import image as image_ops
 
-    layout = image_ops.atlas_layout(480, 752, 8, 1.2, align=35)
+    h, w = seq.imgs_l.shape[1:]
+    layout = image_ops.atlas_layout(h, w, n_levels, 1.2, align=35)
     imgs = torch.from_numpy(np.stack([seq.imgs_l[i], seq.imgs_r[i]])).to(device)
-    return image_ops.build_pyramid_atlas(imgs, 8, 1.2, layout)
+    return image_ops.build_pyramid_atlas(imgs, n_levels, 1.2, layout)
 
 
 def check_k1(seq, device) -> dict:
@@ -634,11 +673,14 @@ def check_k2(device, path_masks) -> dict:
     return {"max_abs_err": float(err)}
 
 
-def matcher_recorder(wanted, densest: bool = False):
+def matcher_recorder(wanted, densest: bool = False, defer: bool = False):
     """(record, tagged, out): `record` stands in for matching.hamming_match
     and keeps the inputs of the first call made under each wanted caller
     path in `out` (with `densest`, of the call with the most admissible
-    pairs, which reads each wanted call's mask count on the host);
+    pairs, which reads each wanted call's mask count on the host; with
+    `defer`, the densest call's inputs per key and input shapes, chosen on
+    the device with no read on the host and no copy kept per call, for
+    densest_of after the run);
     `tagged(key, fn)` wraps fn so that the calls it makes are under key
     ("outer/inner" when nested)."""
     from orb_slam3_vio_fixes_tpu_torch.ops import matching
@@ -649,10 +691,22 @@ def matcher_recorder(wanted, densest: bool = False):
     def record(desc_q, desc_t, mask, cols):
         key = "/".join(tags)
         if key in wanted:
-            n = int(mask.sum()) if densest else 0
-            if key not in out or n > sizes[key]:
-                out[key] = (desc_q.clone(), desc_t.clone(), mask.clone(), cols)
-                sizes[key] = n
+            if defer:
+                group, n = (key, desc_q.shape, desc_t.shape, mask.shape), mask.sum()
+                best = out.get(group)
+                if best is None:
+                    out[group] = [n, desc_q.clone(), desc_t.clone(), mask.clone(), cols, 1]
+                else:
+                    better = n > best[0]
+                    best[0] = torch.maximum(n, best[0])
+                    for j, x in ((1, desc_q), (2, desc_t), (3, mask)):
+                        best[j] = torch.where(better, x, best[j])
+                    best[5] += 1
+            else:
+                n = int(mask.sum()) if densest else 0
+                if key not in out or n > sizes[key]:
+                    out[key] = (desc_q.clone(), desc_t.clone(), mask.clone(), cols)
+                    sizes[key] = n
         return match(desc_q, desc_t, mask, cols)
 
     def tagged(key, fn):
@@ -665,6 +719,16 @@ def matcher_recorder(wanted, densest: bool = False):
         return call
 
     return record, tagged, out
+
+
+def densest_of(deferred) -> dict:
+    """A deferred matcher_recorder's record -> each key's densest call's
+    inputs (the first of equal ones)."""
+    out, most = {}, {}
+    for (key, *_), (n, dq, dt, mask, cols, _) in deferred.items():
+        if key not in out or int(n) > most[key]:
+            out[key], most[key] = (dq, dt, mask, cols), int(n)
+    return out
 
 
 def capture_path_masks(seq, device) -> dict:
@@ -1126,15 +1190,16 @@ def ms_per_call(owner, name):
         yield calls
 
 
-def k1_on_frames(label, seq, frames, device) -> None:
+def k1_on_frames(label, seq, frames, device, n_levels: int = 8) -> None:
     from orb_slam3_vio_fixes_tpu_torch.ops import fast
 
     for i in frames:
-        x = atlases_of(seq, i, device)
+        x = atlases_of(seq, i, device, n_levels)
         got, ref = fast.fast_score_batch(x), fast.fast_score_plain(x)
         sync()
         n_bad = int((got != ref).sum())
-        log(f"[k1] {label} frame {i}: mismatches={n_bad} nonzero={int((ref > 0).sum())}")
+        log(f"[k1] {label} frame {i}: shape={tuple(x.shape)} mismatches={n_bad} "
+            f"nonzero={int((ref > 0).sum())}")
         if n_bad:
             raise RuntimeError(f"K1 disagrees with its plain twin on {label} frame {i}")
 
@@ -2503,11 +2568,12 @@ def pipelined_path(seq, device, card) -> dict:
     from orb_slam3_vio_fixes_tpu_torch.ops import matching
 
     ate_bound = ATE_FACTOR * JAX_ATE_M + ATE_SLACK_M
-    runs, counts = {}, {}
+    runs, counts, hits = {}, {}, {}
     for label, pipelined, async_kf in PIPELINE_MODES:
         kernels.reset_launch_counts()
         tr, numbers = bench_pass(seq, device, card, label, pipelined, async_kf)
         counts[label] = kernels.launch_counts()
+        hits[label] = (numbers["spec_reused"], numbers["spec_dispatched"], numbers["hit_rate"])
         traj = tr.trajectory
         C = np.array([-R.T @ t for _, R, t in traj])
         if not np.all(np.isfinite(C)) or C.shape != (N_FRAMES, 3):
@@ -2532,6 +2598,9 @@ def pipelined_path(seq, device, card) -> dict:
     log(f"[pipelined] pipelined equals sync bit for bit: {same}; async against sync: "
         f"same keyframe order {a_tr.kf_order == s_tr.kf_order}, landmarks {a_tr.n_lm} vs "
         f"{s_tr.n_lm}, centre error median {float(np.median(err))!r} max {float(err.max())!r} m")
+    log(f"[pipelined] speculation hits (reused, dispatched, rate): pipelined "
+        f"{hits['pipelined']} async {hits['async']}; the radius predicted by the "
+        f"tracker's own schedule")
     if not same:
         raise RuntimeError("the pipelined trajectory differs from sync mode's")
     if (a_tr.kf_order != s_tr.kf_order
@@ -2716,17 +2785,151 @@ def fisheye_path(device, card) -> dict:
     return counts
 
 
-# Phases 7-19 run in worker processes, each its phases in this order, all at
+def marathon_path(device, card) -> dict:
+    """Phase 21: tests/test_marathon.py on the card at that test's size
+    (lifetime.marathon): 2,000 frames of 240x352 stereo (2.5 laps, a kidnap
+    into a disconnected world, a kidnap back, 3.2 more laps) through a
+    StereoTracker with a LoopCloser and an Atlas on a vocabulary trained on
+    the card from 8 phase-A frames, and the early window run again after it
+    for the slowdown bar. Gates: the JAX test's own, but for its 220 live
+    keyframes (reported: the JAX package's own run ends at 454), and culling
+    removing at least the JAX package's count on the run (lifetime.py).
+    K1 exact on a marathon atlas pair (B = 2, 4 levels), K2 on the densest
+    masks of the loop verification and the merge verification (kept on the
+    device during the run, with no host read) and of the local-map search
+    over a fresh tracker's first MARATHON_CAPTURE_FRAMES frames after the
+    timed runs. Returns the launch counts."""
+    from orb_slam3_vio_fixes_tpu_torch import kernels, lifetime
+    from orb_slam3_vio_fixes_tpu_torch.frontend import loop_closing as lc
+    from orb_slam3_vio_fixes_tpu_torch.frontend import tracking
+    from orb_slam3_vio_fixes_tpu_torch.ops import matching
+    from orb_slam3_vio_fixes_tpu_torch.slam_map import atlas as atlas_mod
+
+    verify_keys = ("verify_candidate", "verify_cross_candidate")
+    record, tagged, deferred = matcher_recorder(set(verify_keys), defer=True)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with lifetime.MarathonFrames() as frames:
+        with mock.patch.object(matching, "hamming_match", record), \
+                mock.patch.object(lc, "verify_candidate",
+                                  tagged("verify_candidate", lc.verify_candidate)), \
+                mock.patch.object(atlas_mod, "verify_cross_candidate",
+                                  tagged("verify_cross_candidate",
+                                         atlas_mod.verify_cross_candidate)):
+            out = lifetime.marathon(device, frames)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        masks = densest_of(deferred)
+        record, tagged, search = matcher_recorder({"local_map_search"}, densest=True)
+        tr, _, _ = lifetime.marathon_tracker(out["vocab"], device)
+        with mock.patch.object(matching, "hamming_match", record), \
+                mock.patch.object(tracking, "local_map_search",
+                                  tagged("local_map_search", tracking.local_map_search)):
+            for _ in lifetime.run_plan(tr, frames, MARATHON_CAPTURE_FRAMES):
+                pass
+            tr.flush()
+        masks.update(search)
+        last = len(frames.gt_t_wc) - 1
+        circle = types.SimpleNamespace(
+            imgs_l=np.stack([frames.pair(0, 0)[0], frames.pair(0, last)[0]]),
+            imgs_r=np.stack([frames.pair(0, 0)[1], frames.pair(0, last)[1]]))
+    sync()
+    counts = kernels.launch_counts()
+    log(f"[marathon] port: {lifetime.marathon_line(out)}")
+    log(f"[marathon] gates: state={out['state']} loops={out['loops']} merges={out['merges']} "
+        f"reused={out['reused']} culled={out['culled']} kf_live={out['kf_live']} "
+        f"n_kf={out['n_kf']} max_keyframes={out['max_keyframes']} "
+        f"max_landmarks={out['max_landmarks']} map_id={out['map_id']} posed={out['posed']} "
+        f"posed_share={out['posed_share']!r} ate_rmse_m={out['ate_m']!r} "
+        f"early_ms={out['early_ms']!r} late_ms={out['late_ms']!r} "
+        f"late_over_early={out['late_ms'] / out['early_ms']!r} "
+        f"early_rerun_same={out['rerun_same']}")
+    log(f"[marathon] the test's bar of {lifetime.MAR_MAX_LIVE_KF} live keyframes: "
+        f"{'met' if out['kf_live'] <= lifetime.MAR_MAX_LIVE_KF else 'not met'} "
+        f"({out['kf_live']} live; not gated, the JAX package's run ends at "
+        f"{lifetime.JAX_MAR_KF_LIVE})")
+    log(f"[marathon] capacity tiers (frame, (max_keyframes, max_landmarks)): {out['tiers']}")
+    log(f"[timing] {card}: marathon fps={out['fps']!r} frame_ms p50={out['frame_ms_p50']!r} "
+        f"p95={out['frame_ms_p95']!r} max={out['frame_ms_max']!r} wall={out['wall_s']!r}s "
+        f"(host clock per process_stereo call; vocabulary {out['vocab_s']:.1f}s, "
+        f"{out['vocab_words']} words)")
+    log(f"[timing] {card}: marathon first {lifetime.MAR_EARLY[1]} frames fps in the run "
+        f"{out['head_fps']!r}, in the second run after it {out['rerun_fps']!r}; early median "
+        f"ms in the run {out['early_in_run_ms']!r}, in the second run {out['early_ms']!r}")
+    log(f"[timing] {card}: marathon fps per 200-frame block "
+        f"{[round(x, 3) for x in out['fps_blocks']]}")
+    log(f"[timing] {card}: marathon ms per correction "
+        f"{[round(x, 1) for x in out['corrections_ms']]} "
+        f"per merge {[round(x, 1) for x in out['merges_ms']]}")
+    log(f"[marathon] launches={counts} peak_device_mib={peak:.1f} (verification calls "
+        f"recorded: {sum(v[5] for v in deferred.values())})")
+    if out["failed"]:
+        raise RuntimeError(f"marathon gates failed: {out['failed']}")
+    n_frames = out["frames"] + lifetime.MAR_EARLY[1] + MARATHON_CAPTURE_FRAMES
+    check_launches("marathon", counts, n_frames + MARATHON_VOCAB_FRAMES, n_frames)
+    k1_on_frames("marathon", circle, (0, 1), device, n_levels=4)
+    k2_on_masks("marathon", masks, verify_keys + ("local_map_search",))
+    return counts
+
+
+def lifetime_path(device, card) -> dict:
+    """Phase 22: the other slow tests of the map's lifetime on the card, each
+    at its test's size with its bars (lifetime.py): test_kf_culling's two
+    (one run), test_slot_reuse (300 frames, 48 slots), test_noise_robustness's
+    tracking run, test_retrieval_pr's two (256 keyframes on the checked-in
+    vocabulary; 1,024 keyframes on the 10^5-word one). K1 exact on the
+    culling scene's atlases (B = 2, 4 levels), K2 on its densest local-map
+    search mask. Returns the launch counts of the whole phase."""
+    from orb_slam3_vio_fixes_tpu_torch import kernels, lifetime
+    from orb_slam3_vio_fixes_tpu_torch.frontend import tracking
+    from orb_slam3_vio_fixes_tpu_torch.ops import matching
+
+    record, tagged, masks = matcher_recorder({"local_map_search"}, densest=True)
+    total = {}
+    for name, run in (("culling", lifetime.culling_run), ("slot_reuse", lifetime.slot_reuse_run),
+                      ("noise", lifetime.noise_run),
+                      ("retrieval_capacity", lifetime.retrieval_at_capacity),
+                      ("retrieval_grouped", lifetime.retrieval_grouped)):
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        if name == "culling":
+            with mock.patch.object(matching, "hamming_match", record), \
+                    mock.patch.object(tracking, "local_map_search",
+                                      tagged("local_map_search", tracking.local_map_search)):
+                out = run(device)
+        else:
+            out = run(device)
+        sync()
+        counts = kernels.launch_counts()
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        shown = " ".join(f"{k}={v!r}" for k, v in out.items() if k != "failed")
+        log(f"[lifetime] {name}: {shown} launches={counts} "
+            f"peak_device_mib={torch.cuda.max_memory_allocated() / 2**20:.1f} "
+            f"wall={time.perf_counter() - t:.1f}s")
+        if out["failed"]:
+            raise RuntimeError(f"lifetime {name} gates failed: {out['failed']}")
+    seq = lifetime.culling_sequence()
+    seq = seq._replace(imgs_l=quantize(seq.imgs_l), imgs_r=quantize(seq.imgs_r))
+    k1_on_frames("lifetime culling", seq, (0, 35), device, n_levels=4)
+    k2_on_masks("lifetime culling", masks, ("local_map_search",))
+    log(f"[lifetime] launches={total}")
+    return total
+
+
+# Phases 7-22 run in worker processes, each its phases in this order, all at
 # once on the one card: every phase is host-bound (the device sits idle 0.91-
 # 0.94 of a frame, PERF.md section 5), so one process leaves 7 of the
 # machine's 8 cores and most of the card unused, and the phases one after the
 # other ran 1147-1450 s. Each worker is a fresh process, as the driver's and
 # phase_repeat's runs are. The kernel timings (phase 6) run after every
 # worker has ended, on a card that runs nothing else.
-WORKERS = (("si_loop",),
+WORKERS = (("marathon",),
+           ("si_loop",),
            ("si_atlas", "mono_inertial", "mesh"),
            ("facade", "app"),
-           ("pipelined", "fisheye"),
+           ("pipelined", "fisheye", "lifetime"),
            ("stereo_inertial", "loop", "relocalization", "atlas", "mono"))
 
 
@@ -2778,6 +2981,8 @@ def run_phases(names, card, report) -> None:
         "pipelined": lambda: per_pass("pipelined", pipelined_path(seq(), device, card)),
         "fisheye": lambda: per_pass("fisheye", fisheye_path(device, card)),
         "mesh": lambda: mesh_path(vocab(), device, card),
+        "marathon": lambda: {"marathon": marathon_path(device, card)},
+        "lifetime": lambda: {"lifetime": lifetime_path(device, card)},
     }
     for name in names:
         t = time.perf_counter()
@@ -2881,7 +3086,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     workers_by_path, workers_s = run_workers(card, main_work)
-    log(f"[phase] phases 5, 7-19 (in {len(WORKERS) + 1} processes) "
+    log(f"[phase] phases 5, 7-22 (in {len(WORKERS) + 1} processes) "
         f"seconds={time.perf_counter() - t0:.1f}")
     # phase 6 on a card that runs nothing else
     times = path_kernel_times(here["seq"], device, here["path_masks"], card)

@@ -168,8 +168,7 @@ def build_fisheye_stereo_frame(img_l: torch.Tensor, img_r: torch.Tensor,
 
 def _extract_one(img: torch.Tensor, cfg: orb.ORBConfig) -> orb.Features:
     """ORB on one image: a B = 1 atlas through K1."""
-    f = orb.extract_batch(to_f32(img)[None], cfg)
-    return orb.Features(*(a[0] for a in f))
+    return orb.extract(to_f32(img), cfg)
 
 
 def build_mono_frame(img: torch.Tensor, ts: torch.Tensor, cfg: orb.ORBConfig) -> FrameData:

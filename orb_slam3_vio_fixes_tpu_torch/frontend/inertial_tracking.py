@@ -325,11 +325,11 @@ class StereoInertialTracker(trk.StereoTracker):
         t_kf = float(self.state.kf_ts[self.kf_order[-1]])
         return t_kf - self.t_imu_init >= GRAVITY_SETTLE_S
 
-    def _local_search_th(self) -> float:
+    def _search_mult(self, track_state, frames_since_reloc: int) -> float:
         """The healthy states search at 1.0 whatever the base (RGB-D sets
         1.5): widening there admits wrong matches into the joint solves.
         Only the degraded states (recently lost, just relocalised) widen."""
-        base = super()._local_search_th()
+        base = super()._search_mult(track_state, frames_since_reloc)
         return base if base > 1.5 else 1.0
 
     def _next_live(self, k):

@@ -498,6 +498,7 @@ class StereoTracker:
         self.ba_truncated = torch.zeros((), dtype=torch.int64, device=self.device)
         self.n_kf = 0
         self._free_kf_slots = []
+        self._kf_created_reused = 0         # keyframes that landed in a freed slot
         self.n_lm = 0
         self.kf_order = []
         self.R = torch.eye(3, device=self.device)
@@ -596,14 +597,24 @@ class StereoTracker:
         right coordinate; the rest of the path is the stereo one."""
         return self.process_frame(self._build_rgbd(img, depth, ts), ts)
 
-    def _local_search_th(self) -> float:
-        """Local-map search radius multiplier: wider while recently lost and
-        for two frames after a relocalisation."""
-        if self.track_state == TrackState.RECENTLY_LOST:
+    def _search_mult(self, track_state, frames_since_reloc: int) -> float:
+        """Local-map search radius multiplier for a frame tracked in
+        `track_state` with `frames_since_reloc` counted: wider while recently
+        lost and for two frames after a relocalisation. The one schedule for
+        the frame being decided and for the frame a speculation is for."""
+        if track_state == TrackState.RECENTLY_LOST:
             return 3.0
-        if self.frames_since_reloc < 2:
+        if frames_since_reloc < 2:
             return 2.0
         return self.th_local_base
+
+    def _local_search_th(self) -> float:
+        return self._search_mult(self.track_state, self.frames_since_reloc)
+
+    def _spec_search_th(self) -> float:
+        """The radius the next frame uses if the frame in flight leaves the
+        state OK: that frame counts one more frame since relocalisation."""
+        return self._search_mult(TrackState.OK, self.frames_since_reloc + 1)
 
     def _local_window(self) -> torch.Tensor:
         """The recent keyframes of the local map, newest first, -1 padded.
@@ -660,8 +671,7 @@ class StereoTracker:
         candidate, the current map and window, the next search radius."""
         p = self._pending
         return (self.state, p[4], p[0].octave, p[0].angle, p[2], p[3], p[10],
-                self._local_window(),
-                self.th_local_base if self.frames_since_reloc >= 1 else 2.0)
+                self._local_window(), self._spec_search_th())
 
     def process_frame(self, frame: FrameData, ts: float):
         cfg = self.cfg
@@ -957,6 +967,7 @@ class StereoTracker:
         kf_id = self._peek_kf_slot()
         if self._free_kf_slots and kf_id == self._free_kf_slots[0]:
             self._free_kf_slots.pop(0)
+            self._kf_created_reused += 1
         prev_kf = self.kf_order[-1] if self.kf_order else -1
         lcfg = self._lm_cfg()
         neighbors = [-1] * lcfg.n_neighbors

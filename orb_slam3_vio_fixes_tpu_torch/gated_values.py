@@ -1,5 +1,5 @@
 """Read the gated values of the phases that run a window VI BA (7, 12-15,
-17, 19) and of phase 20 out of chip_smoke.py logs, one column per log.
+17, 19) and of phases 20-22 out of chip_smoke.py logs, one column per log.
 
     python -m orb_slam3_vio_fixes_tpu_torch.gated_values LOG [LOG ...]
 
@@ -43,6 +43,24 @@ ROWS = (
     ("20 reloc n_success_global", "[mesh] reloc on", r"n_success_global=" + NUM, 0),
     ("20 reloc centre m", "[mesh] reloc on", r"centre_err_m=" + NUM, 0),
     ("20 dryrun parity", "dryrun_multichip(4) realistic", r"parity=([0-9]+/[0-9]+)", 0),
+    ("21 marathon ATE m", "[marathon] gates:", r"ate_rmse_m=" + NUM, 0),
+    ("21 corrections", "[marathon] gates:", r"loops=" + NUM, 0),
+    ("21 merges", "[marathon] gates:", r"merges=" + NUM, 0),
+    ("21 reused slots", "[marathon] gates:", r"reused=" + NUM, 0),
+    ("21 culled keyframes", "[marathon] gates:", r"culled=" + NUM, 0),
+    ("21 live keyframes", "[marathon] gates:", r"kf_live=" + NUM, 0),
+    ("21 keyframe tier", "[marathon] gates:", r"max_keyframes=" + NUM, 0),
+    ("21 circle frames posed", "[marathon] gates:", r"posed=" + NUM, 0),
+    ("22 culling ATE m", "[lifetime] culling:", r"ate_m=" + NUM, 0),
+    ("22 culling live keyframes", "[lifetime] culling:", r"n_live=" + NUM, 0),
+    ("22 culling keyframes created", "[lifetime] culling:", r"created=" + NUM, 0),
+    ("22 slot reuse keyframes created", "[lifetime] slot_reuse:", r"created=" + NUM, 0),
+    ("22 slot reuse tier", "[lifetime] slot_reuse:", r"max_keyframes=" + NUM, 0),
+    ("22 noise clean ATE m", "[lifetime] noise:", r"clean_ate_m=" + NUM, 0),
+    ("22 noise noisy ATE m", "[lifetime] noise:", r"noisy_ate_m=" + NUM, 0),
+    ("22 retrieval recall", "[lifetime] retrieval_capacity:", r"recall=" + NUM, 0),
+    ("22 grouped top-1", "[lifetime] retrieval_grouped:", r"top1=" + NUM, 0),
+    ("22 grouped top-3", "[lifetime] retrieval_grouped:", r"top3=" + NUM, 0),
 )
 
 

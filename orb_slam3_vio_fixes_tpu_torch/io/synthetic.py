@@ -3,14 +3,19 @@
 synthetic.py: make_world, render, orbit_trajectory, make_stereo_sequence,
 make_stereo_inertial_sequence, the loop scenario's render_stereo_along,
 loop_trajectory, make_loop_world, make_loop_stereo_sequence,
-make_loop_stereo_inertial_sequence, and make_rgbd_sequence).
+make_loop_stereo_inertial_sequence, make_rgbd_sequence, the sensor-noise
+model SensorNoise / degrade_images / degrade_stereo / perturb_imu, and the
+ground-truth-trajectory generators load_gt_trajectory,
+make_world_along_trajectory, make_gt_stereo_sequence and
+make_gt_stereo_inertial_sequence).
 
 A cloud of textured square sprites is rendered along a smooth trajectory by
 a pin-hole stereo pair with a known baseline; ATE against the generator's
 trajectory is the metric the reference's evaluation harness computes. The
-only difference from the reference generator is `so3_exp`, evaluated here in
-numpy float32 instead of through the JAX package (values agree to float32
-rounding).
+only difference from the reference generator is `so3_exp` / `so3_log`,
+evaluated here in numpy float32 instead of through the JAX package (values
+agree to float32 rounding). The noise model draws from `rng` in the
+reference's order, so one seed gives the same bytes.
 """
 
 from __future__ import annotations
@@ -36,6 +41,34 @@ def so3_exp(w) -> np.ndarray:
         a = np.sin(th) / th
         b = (np.float32(1.0) - np.cos(th)) / th2
     return (np.eye(3, dtype=np.float32) + a * W + b * (W @ W)).astype(np.float32)
+
+
+def so3_log(R) -> np.ndarray:
+    """Log map in float32, (3, 3) -> (3,), with the reference's branches: the
+    arccos argument clipped 1e-7 inside (-1, 1), a Taylor scale below 1e-5
+    rad and the axis from the symmetric part within 5e-4 rad of pi."""
+    R = np.asarray(R, np.float32)
+    one, half = np.float32(1.0), np.float32(0.5)
+    cos_t = np.clip((R[0, 0] + R[1, 1] + R[2, 2] - one) * half,
+                    np.float32(-1.0 + 1e-7), np.float32(1.0 - 1e-7))
+    th = np.arccos(cos_t, dtype=np.float32)
+    A = R - R.T
+    w_small = np.array([A[2, 1], A[0, 2], A[1, 0]], np.float32)
+    if th < 1e-5:
+        scale = half + th * th / np.float32(12.0)
+    else:
+        scale = th / (np.float32(2.0) * max(np.sin(th), np.float32(1e-20)))
+    if np.float32(np.pi) - th >= 5e-4:
+        return (np.float32(scale) * w_small).astype(np.float32)
+    S = half * (R + R.T)
+    k = int(np.argmax(np.diag(S)))
+    col = (half * (S + np.eye(3, dtype=np.float32)))[:, k]
+    axis = col / np.sqrt(max(col[k], np.float32(1e-12)), dtype=np.float32)
+    axis = axis / max(np.linalg.norm(axis), np.float32(1e-12))
+    sign = np.float32(-1.0) if float(w_small @ axis) < 0.0 else one
+    sin_t = half * np.sqrt(w_small @ w_small + np.float32(1e-24), dtype=np.float32)
+    th_pi = np.float32(np.pi) - np.arcsin(np.clip(sin_t, 0.0, np.float32(1.0 - 1e-7)))
+    return (th_pi * axis * sign).astype(np.float32)
 
 
 class SyntheticWorld(NamedTuple):
@@ -334,6 +367,199 @@ def make_loop_stereo_inertial_sequence(
     s = render_stereo_along(world, K, R_wc, t_wc, np.arange(n_frames) * dt, h, w, baseline)
     return StereoInertialSequence(s.imgs_l, s.imgs_r, s.ts, R_wc, t_wc, K, baseline, imu,
                                   imu_hz, vel)
+
+
+class SensorNoise(NamedTuple):
+    """Photometric degradation of the synthetic camera, in gray levels
+    (0..255): Gaussian read noise, shot noise sigma = shot_scale * sqrt(I),
+    optical blur, horizontal motion blur, an exposure oscillation, vignette
+    falloff and moving occluder patches."""
+
+    read_sigma: float = 0.0
+    shot_scale: float = 0.0
+    blur_sigma: float = 0.0
+    motion_blur: int = 0
+    gain_drift: float = 0.0
+    gain_period: float = 40.0
+    vignette: float = 0.0
+    occluders: int = 0
+    occluder_size: int = 40
+
+    @property
+    def active(self) -> bool:
+        return (self.read_sigma > 0 or self.shot_scale > 0
+                or self.blur_sigma > 0 or self.motion_blur > 0
+                or self.gain_drift > 0 or self.vignette > 0
+                or self.occluders > 0)
+
+
+# ~2-4 gray levels of noise, mild blur, exposure and vignette drift and two
+# moving occluders
+DEFAULT_NOISE = SensorNoise(
+    read_sigma=2.0, shot_scale=0.25, blur_sigma=0.6, gain_drift=0.12,
+    vignette=0.25, occluders=2, occluder_size=36,
+)
+
+
+def degrade_images(imgs: np.ndarray, rng, noise: SensorNoise,
+                   frame0: int = 0) -> np.ndarray:
+    """Apply `noise` to a (T, H, W) float image stack in a camera's order:
+    blur -> vignette and exposure -> occluders -> shot and read noise ->
+    clip to 0..255. Deterministic given (rng, frame0)."""
+    if not noise.active:
+        return imgs
+    from scipy.ndimage import gaussian_filter, uniform_filter1d
+
+    T, h, w = imgs.shape
+    out = imgs.astype(np.float32).copy()
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    r2 = (((yy - h / 2) / (h / 2)) ** 2 + ((xx - w / 2) / (w / 2)) ** 2) / 2.0
+    vig = 1.0 - noise.vignette * r2 if noise.vignette > 0 else None
+    for t in range(T):
+        img = out[t]
+        if noise.blur_sigma > 0:
+            img = gaussian_filter(img, noise.blur_sigma)
+        if noise.motion_blur > 1:
+            img = uniform_filter1d(img, noise.motion_blur, axis=1)
+        if noise.gain_drift > 0:
+            img = img * (1.0 + noise.gain_drift * np.sin(
+                2.0 * np.pi * (frame0 + t) / noise.gain_period))
+        if vig is not None:
+            img = img * vig
+        for _ in range(noise.occluders):
+            s = noise.occluder_size
+            y0 = rng.integers(0, max(h - s, 1))
+            x0 = rng.integers(0, max(w - s, 1))
+            tex = rng.uniform(20, 240, size=(max(s // 6, 1),) * 2)
+            tex = np.kron(tex, np.ones((6, 6)))[:s, :s]
+            img[y0:y0 + s, x0:x0 + s] = tex[:min(s, h - y0), :min(s, w - x0)]
+        sigma = noise.read_sigma
+        if noise.shot_scale > 0:
+            sig_map = np.sqrt(sigma ** 2 + noise.shot_scale ** 2 * np.maximum(img, 0.0))
+            img = img + rng.standard_normal(img.shape).astype(np.float32) * sig_map
+        elif sigma > 0:
+            img = img + rng.normal(0, sigma, img.shape).astype(np.float32)
+        out[t] = np.clip(img, 0.0, 255.0)
+    return out
+
+
+def degrade_stereo(seq, rng, noise: SensorNoise = DEFAULT_NOISE):
+    """Both eyes of a stereo(-inertial) sequence through `noise`, with
+    independent draws (left first)."""
+    return seq._replace(imgs_l=degrade_images(seq.imgs_l, rng, noise),
+                        imgs_r=degrade_images(seq.imgs_r, rng, noise))
+
+
+def perturb_imu(imu: np.ndarray, rng, gyro_noise: float = 0.004,
+                acc_noise: float = 0.02, gyro_walk: float = 2e-5,
+                acc_walk: float = 3e-4, gyro_bias0: float = 0.003,
+                acc_bias0: float = 0.02) -> np.ndarray:
+    """A copy of a clean (T-1, S, 7) IMU stack with white noise and
+    random-walk biases added (EuRoC-class densities at 200 Hz)."""
+    out = imu.copy()
+    bg = rng.normal(0, gyro_bias0, 3)
+    ba = rng.normal(0, acc_bias0, 3)
+    for i in range(out.shape[0]):
+        for k in range(out.shape[1]):
+            dt = float(out[i, k, 6])
+            if dt <= 0:
+                continue
+            ba = ba + rng.normal(0, acc_walk * np.sqrt(dt), 3)
+            bg = bg + rng.normal(0, gyro_walk * np.sqrt(dt), 3)
+            out[i, k, 0:3] += ba + rng.normal(0, acc_noise, 3)
+            out[i, k, 3:6] += bg + rng.normal(0, gyro_noise, 3)
+    return out
+
+
+def load_gt_trajectory(path: str, n_frames: int = 0, stride: int = 1):
+    """A ground-truth trajectory file in the EuRoC left-camera layout (CSV
+    rows `timestamp_ns, p_xyz, q_wxyz`, `#` comments). Returns (ts (T,)
+    float64 seconds from the first row, R_wc (T, 3, 3) float32, t_wc (T, 3)
+    float32)."""
+    rows = np.loadtxt(path, delimiter=",", comments="#")
+    rows = rows[::stride]
+    if n_frames:
+        rows = rows[:n_frames]
+    ts = (rows[:, 0] - rows[0, 0]) * 1e-9
+    t_wc = rows[:, 1:4].astype(np.float32)
+    w, x, y, z = rows[:, 4], rows[:, 5], rows[:, 6], rows[:, 7]
+    R_wc = np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+    ], axis=1).reshape(-1, 3, 3).astype(np.float32)
+    return ts.astype(np.float64), R_wc, t_wc
+
+
+def make_world_along_trajectory(rng, R_wc, t_wc, n_points=800,
+                                depth_range=(2.5, 10.0), every=4) -> SyntheticWorld:
+    """Sprites along random pixel rays of every `every`-th pose, at random
+    depths, so every camera of an arbitrary trajectory sees structure."""
+    n_anchor = max(1, len(R_wc) // every)
+    per = max(1, n_points // n_anchor)
+    pts = []
+    for i in range(0, len(R_wc), every):
+        d = rng.uniform(depth_range[0], depth_range[1], per)
+        dx = rng.uniform(-0.6, 0.6, per)
+        dy = rng.uniform(-0.45, 0.45, per)
+        rays = np.stack([dx, dy, np.ones(per)], 1)
+        rays /= np.linalg.norm(rays, axis=1, keepdims=True)
+        pts.append(t_wc[i][None] + (R_wc[i] @ (rays * d[:, None]).T).T)
+    pts = np.concatenate(pts).astype(np.float32)
+    n = len(pts)
+    tex = rng.uniform(70, 250, size=(n, TEX, TEX)).astype(np.float32)
+    tex = np.repeat(np.repeat(tex[:, ::2, ::2], 2, axis=1), 2, axis=2)[:, :TEX, :TEX]
+    return SyntheticWorld(points=pts,
+                          sprite_size=rng.uniform(0.05, 0.14, n).astype(np.float32),
+                          sprite_tex=tex)
+
+
+def make_gt_stereo_sequence(rng, gt_path: str, n_frames=40, stride=4, h=240, w=352,
+                            fx=260.0, baseline=0.2, n_points=900,
+                            depth_range=(2.5, 10.0)) -> StereoSequence:
+    """A stereo sequence rendered along a ground-truth trajectory file."""
+    ts, R_wc, t_wc = load_gt_trajectory(gt_path, n_frames=n_frames, stride=stride)
+    world = make_world_along_trajectory(rng, R_wc, t_wc, n_points=n_points,
+                                        depth_range=depth_range)
+    K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1]], np.float32)
+    return render_stereo_along(world, K, R_wc, t_wc, ts, h, w, baseline)
+
+
+def make_gt_stereo_inertial_sequence(rng, gt_path: str, n_frames=120, h=240, w=352,
+                                     fx=260.0, baseline=0.2, n_points=2400,
+                                     depth_range=(2.5, 10.0),
+                                     imu_hz=200.0) -> StereoInertialSequence:
+    """Stereo frames and synthesised IMU along a ground-truth trajectory
+    file: a cubic spline through the positions gives the world acceleration,
+    the rotation is slerped between samples (constant body rate per
+    interval), gravity (0, 0, -9.81), body frame = camera frame."""
+    from scipy.interpolate import CubicSpline
+
+    ts, R_wc, t_wc = load_gt_trajectory(gt_path, n_frames=n_frames, stride=1)
+    G = np.array([0.0, 0.0, -9.81], np.float32)
+    cs = CubicSpline(ts, t_wc, axis=0)
+    vel = cs(ts, 1).astype(np.float32)
+    spf = int(round((ts[1] - ts[0]) * imu_hz))
+    dts = 1.0 / imu_hz
+    imu = np.zeros((n_frames - 1, spf, 7), np.float32)
+    for i in range(n_frames - 1):
+        for k in range(spf):
+            t = ts[i] + k * dts
+            a_w = cs(t, 2)
+            j = min(int((t - ts[0]) / (ts[1] - ts[0])), n_frames - 2)
+            alpha = (t - ts[j]) / (ts[j + 1] - ts[j])
+            w_vec = so3_log((R_wc[j].T @ R_wc[j + 1]).astype(np.float32))
+            R_t = R_wc[j] @ so3_exp((alpha * w_vec).astype(np.float32))
+            omega_b = w_vec / (ts[j + 1] - ts[j])
+            a_b = R_t.T @ (a_w - G)
+            imu[i, k] = np.concatenate(
+                [a_b.astype(np.float32), omega_b.astype(np.float32), [dts]])
+    world = make_world_along_trajectory(rng, R_wc, t_wc, n_points=n_points,
+                                        depth_range=depth_range)
+    K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1]], np.float32)
+    s = render_stereo_along(world, K, R_wc, t_wc, ts, h, w, baseline)
+    return StereoInertialSequence(s.imgs_l, s.imgs_r, s.ts, s.R_wc, s.t_wc, s.K,
+                                  baseline, imu, imu_hz, vel)
 
 
 class RGBDSequence(NamedTuple):

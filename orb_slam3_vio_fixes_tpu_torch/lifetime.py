@@ -1,0 +1,645 @@
+"""The map's lifetime on the port: the runs of the reference's long tests,
+each at its test's own size and with its own bars, on any device.
+
+  * `marathon`: tests/test_marathon.py, ~2,000 frames at 240x352 (laps of
+    a loop circle, two kidnaps, a disconnected world, the merge back);
+  * `culling_run`: test_kf_culling.py's two slow tests (one run, both
+    gates); `capacity_growth_run`: its `test_capacity_growth`;
+  * `slot_reuse_run`: test_slot_reuse.py (300 frames, 48 keyframe slots);
+  * `noise_run`: test_noise_robustness.py's tracking run, clean and through
+    `synthetic.degrade_stereo`;
+  * `retrieval_at_capacity` and `retrieval_grouped`: test_retrieval_pr.py's
+    256-keyframe recall and 1,024-keyframe grouped query.
+
+Each returns a dict of what it measured; its "failed" entry lists the bars
+the run missed (empty when every gate holds). chip_smoke.py runs them on
+the card (phases 21 and 22); the port's tests run the smaller ones on the
+CPU. Host images go to the tracker as the tests give them (uint8 or float,
+quantised on upload).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from orb_slam3_vio_fixes_tpu_torch.evaluation import ate
+from orb_slam3_vio_fixes_tpu_torch.frontend import loop_closing as lc
+from orb_slam3_vio_fixes_tpu_torch.frontend import tracking
+from orb_slam3_vio_fixes_tpu_torch.frontend.frame import build_stereo_frame_impl
+from orb_slam3_vio_fixes_tpu_torch.io import synthetic
+from orb_slam3_vio_fixes_tpu_torch.ops import orb
+from orb_slam3_vio_fixes_tpu_torch.slam_map import atlas as atlas_mod
+from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
+from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary as voc
+from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera
+
+OK = tracking.TrackState.OK
+
+# tests/test_marathon.py's scenario
+MAR_H, MAR_W, MAR_FX, MAR_BASELINE, MAR_DT = 240, 352, 260.0, 0.2, 0.05
+MAR_N_A, MAR_N_B, MAR_N_C = 800, 150, 1026
+MAR_N_BLANK = 12
+MAR_N_LOOP = 320
+# The test's bar on live keyframes, 220, is one the JAX package's own run of
+# the test does not meet: it ends with 454 live keyframes (n_kf 454, 18
+# keyframes landed in reused slots, 40 corrections, 1 merge, circle ATE
+# 0.1498 m; tests/test_torch_lifetime.py::test_jax_marathon_reference on a
+# CPU with JAX 0.9.0, the same numbers in two runs). The bar is reported,
+# not gated. What culling does is
+# gated instead: the keyframes it removed (created, n_kf + reused, less the
+# live ones) are at least as many as in the JAX package's run.
+MAR_MAX_LIVE_KF = 220
+JAX_MAR_KF_LIVE = 454
+JAX_MAR_CULLED = 18
+MAR_MAX_TIER_KF = 512
+MAR_SLOWDOWN = 2.0
+MAR_POSED = 0.95
+MAR_ATE_M = 0.5
+
+
+def _cam(seq) -> Camera:
+    return Camera.pinhole(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2])
+
+
+def _quantize(x):
+    return np.clip(np.rint(x), 0, 255).astype(np.uint8)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tracker_ate(tr, seq) -> float:
+    """Horn-aligned ATE of every recorded frame; every frame associates."""
+    traj = tr.trajectory
+    est_ts = np.array([x[0] for x in traj])
+    est_pos = np.array([-R.T @ t for _, R, t in traj])
+    rmse, _, n = ate.ate_rmse(seq.ts, seq.t_wc, est_ts, est_pos)
+    if n != len(est_ts):
+        raise RuntimeError(f"ATE associated {n} of {len(est_ts)} frames")
+    return float(rmse)
+
+
+def _run(tr, seq, n=None):
+    for i in range(n or seq.imgs_l.shape[0]):
+        tr.process_stereo(seq.imgs_l[i], seq.imgs_r[i], seq.ts[i])
+    tr.flush()
+    return tr
+
+
+# --- tests/test_kf_culling.py -------------------------------------------------
+
+def culling_sequence():
+    rng = np.random.default_rng(7)
+    world = synthetic.make_world(rng, n_points=600, extent=7.0, depth_range=(2.5, 9.0))
+    return synthetic.make_stereo_sequence(rng, n_frames=36, h=240, w=352, fx=260.0,
+                                          baseline=0.2, world=world)
+
+
+def culling_config(seq, **kw) -> tracking.TrackerConfig:
+    base = dict(
+        orb=orb.ORBConfig(n_features=400, n_levels=4),
+        map=ms.MapConfig(max_keyframes=32, max_landmarks=4096, max_features=400),
+        width=seq.imgs_l.shape[2], height=seq.imgs_l.shape[1], max_local_lm=1024,
+        ba_window=6, ba_fixed=2, new_lm_budget=256, max_frames_between_kf=6)
+    base.update(kw)
+    return tracking.TrackerConfig(**base)
+
+
+def culling_setup():
+    """test_kf_culling's culling run: (sequence, TrackerConfig) with a
+    keyframe every 2 frames and culling every 2."""
+    seq = culling_sequence()
+    return seq, culling_config(seq, max_frames_between_kf=2, kf_cull_every=2)
+
+
+def culling_run(device) -> dict:
+    """A keyframe every 2 frames and culling every 2: culling removes
+    keyframes, the map stays consistent (test_culling_bounds_keyframes) and
+    the trajectory names live keyframes only
+    (test_trajectory_survives_culling).
+
+    The reference test counts a removal as n_live < n_kf, which predates
+    keyframe-slot reuse: a culled slot is taken by a later keyframe, so the
+    high-water n_kf can end equal to the live count although keyframes were
+    culled (the JAX package's own run ends at 14 live of 14 slots, as the
+    port's does). The bar here is its meaning with reuse counted: fewer
+    live keyframes than were created (n_kf + _kf_created_reused)."""
+    seq, cfg = culling_setup()
+    tr = _run(tracking.StereoTracker(_cam(seq), seq.K[0, 0] * seq.baseline, cfg,
+                                     device=device), seq)
+    n_live = len(tr.kf_order)
+    valid = tr.state.kf_valid.cpu().numpy()
+    obs = tr.state.kf_obs.cpu().numpy()
+    live = set(tr.kf_order)
+    dead_clean = all(not valid[k] and (obs[k] == -1).all()
+                     for k in range(tr.n_kf) if k not in live)
+    out = dict(state=tr.track_state, n_live=n_live, n_kf=tr.n_kf,
+               max_keyframes=tr.cfg.map.max_keyframes,
+               reused=tr._kf_created_reused, created=tr.n_kf + tr._kf_created_reused,
+               ate_m=_tracker_ate(tr, seq),
+               valid_count=int(valid.sum()), dead_clean=dead_clean,
+               traj_live=all(e[1] == -1 or e[1] in live for e in tr.traj))
+    failed = []
+    if out["state"] != OK:
+        failed.append(f"state {out['state']}")
+    if not n_live < out["created"]:
+        failed.append("culling never removed a keyframe")
+    if not out["ate_m"] < 0.02:
+        failed.append(f"ATE {out['ate_m']} m >= 0.02")
+    if out["valid_count"] != n_live or not dead_clean:
+        failed.append("excised slots are not dead")
+    if not out["traj_live"]:
+        failed.append("the trajectory references a dead keyframe")
+    out["failed"] = failed
+    return out
+
+
+def capacity_growth_run(device) -> dict:
+    """test_capacity_growth: 24 frames with 8 keyframe slots, a keyframe
+    every 2 frames, no culling: the tier must double and tracking hold."""
+    seq = culling_sequence()
+    cfg = culling_config(seq, map=ms.MapConfig(max_keyframes=8, max_landmarks=4096,
+                                               max_features=400),
+                         max_frames_between_kf=2, ba_window=4, ba_fixed=2,
+                         enable_kf_culling=False)
+    tr = _run(tracking.StereoTracker(_cam(seq), seq.K[0, 0] * seq.baseline, cfg,
+                                     device=device), seq, 24)
+    out = dict(state=tr.track_state, n_kf=tr.n_kf, max_keyframes=tr.cfg.map.max_keyframes,
+               ate_m=_tracker_ate(tr, seq))
+    failed = []
+    if not tr.n_kf > 8:
+        failed.append("the sequence did not exceed the initial tier")
+    if not out["max_keyframes"] >= 16:
+        failed.append(f"tier {out['max_keyframes']} < 16")
+    if out["state"] != OK:
+        failed.append(f"state {out['state']}")
+    if not out["ate_m"] < 0.02:
+        failed.append(f"ATE {out['ate_m']} m >= 0.02")
+    out["failed"] = failed
+    return out
+
+
+# --- tests/test_slot_reuse.py -------------------------------------------------
+
+SLOT_REUSE_MAX_KF = 48
+
+
+def slot_reuse_setup():
+    """test_slot_reuse's run: (sequence, TrackerConfig), 300 frames of a slow
+    orbit with heavy culling and 48 keyframe slots."""
+    rng = np.random.default_rng(3)
+    world = synthetic.make_world(rng, n_points=900, extent=9.0, depth_range=(2.5, 9.0))
+    seq = synthetic.make_stereo_sequence(rng, n_frames=300, h=240, w=352, fx=260.0,
+                                         baseline=0.2, speed=(0.25, 0.0, 0.04),
+                                         yaw_rate=0.02, world=world)
+    cfg = tracking.TrackerConfig(
+        orb=orb.ORBConfig(n_features=400, n_levels=4),
+        map=ms.MapConfig(max_keyframes=SLOT_REUSE_MAX_KF, max_landmarks=8192,
+                         max_features=400),
+        width=352, height=240, max_local_lm=1024, ba_window=6, ba_fixed=2,
+        new_lm_budget=256, max_frames_between_kf=4, kf_cull_every=2, kf_cull_max=4)
+    return seq, cfg
+
+
+def slot_reuse_run(device) -> dict:
+    """300 frames of a slow orbit with heavy culling: the tier stays at 48
+    slots because culled slots are reused."""
+    seq, cfg = slot_reuse_setup()
+    max_kf = SLOT_REUSE_MAX_KF
+    tr = _run(tracking.StereoTracker(_cam(seq), seq.K[0, 0] * seq.baseline, cfg,
+                                     device=device), seq)
+    live = tr.state.kf_valid.cpu().numpy().nonzero()[0].tolist()
+    out = dict(state=tr.track_state, max_keyframes=tr.cfg.map.max_keyframes, n_kf=tr.n_kf,
+               n_live=len(tr.kf_order), reused=tr._kf_created_reused,
+               created=tr.n_kf + tr._kf_created_reused,
+               live_consistent=sorted(tr.kf_order) == sorted(live))
+    failed = []
+    if out["state"] != OK:
+        failed.append(f"state {out['state']}")
+    if out["max_keyframes"] != max_kf:
+        failed.append(f"the tier doubled to {out['max_keyframes']}")
+    if not tr.n_kf < max_kf - 2:
+        failed.append(f"slot high-water {tr.n_kf} >= {max_kf - 2}")
+    if not out["created"] > max_kf:
+        failed.append(f"only {out['created']} keyframes created")
+    if not out["live_consistent"]:
+        failed.append("live bookkeeping disagrees with kf_valid")
+    out["failed"] = failed
+    return out
+
+
+# --- tests/test_noise_robustness.py -------------------------------------------
+
+def noise_run(device) -> dict:
+    """24 frames clean and through degrade_stereo(DEFAULT_NOISE): the noisy
+    run stays OK with its ATE below max(2 x clean, 0.02 m)."""
+    rng = np.random.default_rng(7)
+    world = synthetic.make_world(rng, n_points=700, extent=7.0, depth_range=(2.5, 9.0))
+    seq = synthetic.make_stereo_sequence(rng, n_frames=24, h=240, w=352, fx=260.0,
+                                         baseline=0.2, world=world)
+    noisy = synthetic.degrade_stereo(seq, np.random.default_rng(17))
+    cfg = tracking.TrackerConfig(
+        orb=orb.ORBConfig(n_features=400, n_levels=4),
+        map=ms.MapConfig(max_keyframes=32, max_landmarks=4096, max_features=400),
+        width=352, height=240, max_local_lm=1024, ba_window=6, ba_fixed=2,
+        new_lm_budget=256, max_frames_between_kf=6)
+    out = {}
+    for label, s in (("clean", seq), ("noisy", noisy)):
+        tr = _run(tracking.StereoTracker(_cam(s), s.K[0, 0] * s.baseline, cfg,
+                                         device=device), s)
+        rmse, _, _ = ate.ate_rmse(s.ts, s.t_wc, np.array([x[0] for x in tr.trajectory]),
+                                  np.array([-R.T @ t for _, R, t in tr.trajectory]))
+        out[f"{label}_state"], out[f"{label}_ate_m"] = tr.track_state, float(rmse)
+    out["bar_m"] = max(2.0 * out["clean_ate_m"], 0.02)
+    failed = []
+    if out["noisy_state"] != OK:
+        failed.append(f"noisy state {out['noisy_state']}")
+    if not out["noisy_ate_m"] < out["bar_m"]:
+        failed.append(f"noisy ATE {out['noisy_ate_m']} m >= {out['bar_m']}")
+    out["failed"] = failed
+    return out
+
+
+# --- tests/test_retrieval_pr.py -----------------------------------------------
+
+def _frame_words(img_l, img_r, cam, bf, ocfg, device):
+    f = build_stereo_frame_impl(torch.as_tensor(np.asarray(img_l)).to(device),
+                                torch.as_tensor(np.asarray(img_r)).to(device),
+                                torch.zeros((), device=device), cam, bf, ocfg)
+    return f.desc, f.valid
+
+
+def retrieval_at_capacity(device) -> dict:
+    """256 keyframes, one per pose around the loop world, on the checked-in
+    vocabulary; 24 noisy re-renders must find a keyframe within 8 poses in
+    their top 3 (recall >= 0.75, over the reference test's 24)."""
+    rng = np.random.default_rng(9)
+    n_loop = 256
+    seq = synthetic.make_loop_stereo_sequence(rng, n_frames=n_loop, h=240, w=352, fx=260.0,
+                                              baseline=0.2, radius=3.0, wall_radius=9.0,
+                                              n_points=1600)
+    ocfg = orb.ORBConfig(n_features=384, n_levels=4)
+    cam = _cam(seq)
+    bf = float(np.float32(seq.K[0, 0] * seq.baseline))
+    vocab = voc.default_vocabulary(device)
+    H = torch.stack([lc.kf_histogram(vocab, *_frame_words(
+        seq.imgs_l[i], seq.imgs_r[i], cam, bf, ocfg, device)) for i in range(n_loop)])
+    hits, n_q, n_run = 0, 24, 0
+    for qi in range(0, n_loop, n_loop // n_q):
+        img = (seq.imgs_l[qi] + rng.normal(0, 2.0, seq.imgs_l[qi].shape)).astype(np.float32)
+        h = lc.kf_histogram(vocab, *_frame_words(img, seq.imgs_r[qi], cam, bf, ocfg, device))
+        scores = (1.0 - 0.5 * (H - h[None]).abs().sum(-1)).cpu().numpy()
+        scores[qi] = -1
+        top3 = np.argsort(-scores)[:3]
+        d = np.minimum(np.abs(top3 - qi), n_loop - np.abs(top3 - qi))
+        hits += bool((d <= 8).any())
+        n_run += 1
+    out = dict(words=vocab.n_words, queries=n_run, hits=hits, recall=hits / n_q)
+    out["failed"] = [] if out["recall"] >= 0.75 else [f"recall {out['recall']} < 0.75"]
+    return out
+
+
+def retrieval_grouped(device) -> dict:
+    """1,024 keyframes (256 places x 4 views of 300 descriptors drawn from
+    rendered frames, 30% replaced and 20% of words bit-flipped) on the
+    10^5-word vocabulary; 48 held-out views through db_query_grouped: top-1
+    >= 0.85 and top-3 >= 0.95 of the right place."""
+    rng = np.random.default_rng(21)
+    vocab = voc.default_vocabulary(device)
+    failed = [] if vocab.n_words >= 10**5 else [f"vocabulary of {vocab.n_words} words"]
+    ocfg = orb.ORBConfig(n_features=512, n_levels=4)
+    cam = Camera.pinhole(260.0, 260.0, 176.0, 120.0)
+    pool = []
+    for seed in range(4):
+        r2 = np.random.default_rng(100 + seed)
+        world = synthetic.make_world(r2, n_points=700, extent=8.0, depth_range=(3.0, 11.0))
+        seq = synthetic.make_stereo_sequence(r2, n_frames=6, h=240, w=352, fx=260.0,
+                                             baseline=0.2, world=world)
+        for i in range(6):
+            d, v = _frame_words(seq.imgs_l[i], seq.imgs_r[i], cam, 52.0, ocfg, device)
+            pool.append(d[v].cpu().numpy().view(np.uint32))
+    pool = np.concatenate(pool)
+    n_place, views, per_kf = 256, 4, 300
+    K = n_place * views
+    base_sets = [pool[rng.choice(len(pool), per_kf, replace=False)] for _ in range(n_place)]
+
+    def view_of(p, r):
+        d = base_sets[p].copy()
+        keep = r.random(per_kf) > 0.3
+        extra = pool[r.choice(len(pool), per_kf, replace=False)]
+        d = np.where(keep[:, None], d, extra)
+        flip = (np.uint32(1) << r.integers(0, 32, d.shape).astype(np.uint32))
+        return np.where(r.random(d.shape) < 0.2, d ^ flip, d)
+
+    ones = torch.ones(per_kf, dtype=torch.bool, device=device)
+
+    def hist(d):
+        words = voc.assign_words(vocab, torch.as_tensor(d.view(np.int32)).to(device), ones)
+        return voc.bow_histogram(vocab, words)
+
+    db = voc.KeyFrameDatabase(torch.stack([
+        hist(view_of(p, np.random.default_rng(1000 * p + v)))
+        for p in range(n_place) for v in range(views)]))
+    place_of = np.repeat(np.arange(n_place), views)
+    cov = (place_of[:, None] == place_of[None, :]).astype(np.float32) * 50.0
+    np.fill_diagonal(cov, 0.0)
+    cov_t = torch.as_tensor(cov, device=device)
+    exclude = torch.zeros(K, dtype=torch.bool, device=device)
+    n_q, top1, top3 = 48, 0, 0
+    for qi in range(n_q):
+        p = int(rng.integers(0, n_place))
+        h = hist(view_of(p, np.random.default_rng(7_000_000 + qi)))
+        ids, _ = voc.db_query_grouped(db, h, cov_t, exclude, 0.0, n_best=3)
+        ids = ids.cpu().numpy()
+        got = place_of[ids[ids >= 0]] if (ids >= 0).any() else []
+        top1 += bool(len(got) and got[0] == p)
+        top3 += p in list(got)
+    out = dict(words=vocab.n_words, keyframes=K, queries=n_q, top1=top1 / n_q,
+               top3=top3 / n_q)
+    if not out["top1"] >= 0.85:
+        failed.append(f"grouped top-1 {top1}/{n_q}")
+    if not out["top3"] >= 0.95:
+        failed.append(f"grouped top-3 {top3}/{n_q}")
+    out["failed"] = failed
+    return out
+
+
+# --- tests/test_marathon.py ---------------------------------------------------
+
+def marathon_config() -> tracking.TrackerConfig:
+    return tracking.TrackerConfig(
+        orb=orb.ORBConfig(n_features=384, n_levels=4),
+        map=ms.MapConfig(max_keyframes=64, max_landmarks=8192, max_features=384),
+        width=MAR_W, height=MAR_H, max_local_lm=2048, ba_window=6, ba_fixed=2,
+        new_lm_budget=256, max_frames_between_kf=6)
+
+
+def marathon_scene():
+    """The two worlds and trajectories of test_marathon._render_all (seeds 31
+    and 77): [(world, R_wc, t_wc)] for the circle and the other world."""
+    out = []
+    for seed, n, radius, wall, pts, lap in (
+            (31, MAR_N_A + MAR_N_C, 3.0, 9.0, 1600, MAR_N_LOOP),
+            (77, MAR_N_B, 2.0, 6.0, 1100, MAR_N_B + 1)):
+        world = synthetic.make_loop_world(np.random.default_rng(seed), n_points=pts,
+                                          wall_radius=wall)
+        R_wc, t_wc = synthetic.loop_trajectory(n, MAR_DT, radius=radius, n_loop=lap)
+        out.append((world, R_wc, t_wc))
+    return out
+
+
+def render_frames(world, R_wc, t_wc):
+    """uint8 (left, right) stacks at the given poses: the test quantises its
+    frames like a real camera's output."""
+    K = np.array([[MAR_FX, 0, MAR_W / 2], [0, MAR_FX, MAR_H / 2], [0, 0, 1]], np.float32)
+    s = synthetic.render_stereo_along(world, K, R_wc, t_wc, np.zeros(len(R_wc)), MAR_H,
+                                      MAR_W, MAR_BASELINE)
+    return _quantize(s.imgs_l), _quantize(s.imgs_r)
+
+
+# MarathonFrames renders the scenario in this many spawned processes, this
+# many frames to a chunk.
+MAR_RENDER_PROCS = 3
+MAR_RENDER_CHUNK = 64
+# The test's windows of frames for its slowdown bar: the early median over
+# frames 300-500 against the late one over the last 220 frames but 20.
+MAR_EARLY = (300, 500)
+MAR_LATE = (-220, -20)
+
+
+class MarathonFrames:
+    """The scenario's uint8 stereo pairs, rendered in chunks of
+    MAR_RENDER_CHUNK frames by MAR_RENDER_PROCS spawned processes in the
+    order the run uses them, so the tracker starts while later chunks render
+    (each frame is rendered on its own: the same bytes as one process).
+    `pair(w, i)` waits for frame i of world w (0: the circle, 1: the other
+    world); `gt_t_wc` holds the circle's true camera centres. Use as a
+    context manager: leaving it stops the processes."""
+
+    def __init__(self):
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+
+        scene = marathon_scene()
+        self.gt_t_wc = scene[0][2]
+        self.chunk = chunk = MAR_RENDER_CHUNK
+        order = []                          # chunks in the order the plan reads them
+        for w, i, _ in marathon_plan():
+            key = (w, i - i % chunk)
+            if w >= 0 and key not in order:
+                order.append(key)
+        self._pool = ProcessPoolExecutor(MAR_RENDER_PROCS, mp_context=mp.get_context("spawn"))
+        self._parts = {(w, a): self._pool.submit(render_frames, scene[w][0],
+                                                 scene[w][1][a:a + chunk],
+                                                 scene[w][2][a:a + chunk])
+                       for w, a in order}
+
+    def pair(self, w: int, i: int):
+        a = i - i % self.chunk
+        left, right = self._parts[(w, a)].result()
+        return left[i - a], right[i - a]
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(cancel_futures=True)
+            self._pool = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def marathon_plan():
+    """The frame order: (world index or -1 for a blank, pose index, circle?)."""
+    plan = [(0, i, True) for i in range(MAR_N_A)]
+    plan += [(-1, 0, False)] * MAR_N_BLANK
+    plan += [(1, i, False) for i in range(MAR_N_B)]
+    plan += [(-1, 0, False)] * MAR_N_BLANK
+    plan += [(0, i, True) for i in range(MAR_N_A, MAR_N_A + MAR_N_C)]
+    return plan
+
+
+def marathon_vocabulary(frames: MarathonFrames, device):
+    """The test's vocabulary, trained on `device` from 8 phase-A frames
+    (branching 10, depth 3, seed 0)."""
+    cfg = marathon_config()
+    cam = Camera.pinhole(MAR_FX, MAR_FX, MAR_W / 2, MAR_H / 2)
+    pool = []
+    for i in range(0, MAR_N_LOOP, MAR_N_LOOP // 8):
+        d, v = _frame_words(*frames.pair(0, i), cam, MAR_FX * MAR_BASELINE, cfg.orb, device)
+        pool.append(d[v].cpu().numpy())
+    return voc.train(np.concatenate(pool), branching=10, depth=3, seed=0, device=device)
+
+
+def marathon_tracker(vocab, device):
+    """The test's StereoTracker with its LoopCloser and Atlas on `vocab`:
+    (tracker, closer, atlas)."""
+    cfg = marathon_config()
+    cam = Camera.pinhole(MAR_FX, MAR_FX, MAR_W / 2, MAR_H / 2)
+    bf = MAR_FX * MAR_BASELINE
+    inv_s2 = tracking.octave_inv_sigma2(cfg.orb, device)
+    closer = lc.LoopCloser(vocab, cam, cfg.map.max_keyframes, inv_s2,
+                           lc.LoopConfig(min_gap_kfs=12, n_consistency=2, fix_scale=True),
+                           bf=bf, n_levels=cfg.orb.n_levels, scale=cfg.orb.scale,
+                           device=device)
+    atl = atlas_mod.Atlas(cfg.map, vocab, cam, inv_s2,
+                          atlas_mod.AtlasConfig(min_stash_kfs=5), device=device)
+    tr = tracking.StereoTracker(cam, bf, cfg, device=device, loop_closer=closer, atlas=atl)
+    tr.max_lost_frames = 4
+    return tr, closer, atl
+
+
+def run_plan(tr, frames: MarathonFrames, stop=None):
+    """Feed the plan's first `stop` frames (all by default) to `tr` as the
+    test does (black frames at the kidnaps, MAR_DT apart). Yields, after
+    each frame, (n, circle pose index or None, ts, what process_stereo
+    returned, its host seconds)."""
+    blank = np.zeros((MAR_H, MAR_W), np.uint8)
+    ts = 0.0
+    for n, (w, i, on_circle) in enumerate(marathon_plan()[:stop]):
+        img_l, img_r = (blank, blank) if w < 0 else frames.pair(w, i)
+        s = time.perf_counter()
+        got = tr.process_stereo(img_l, img_r, ts)
+        yield n, (i if on_circle else None), ts, got, time.perf_counter() - s
+        ts += MAR_DT
+
+
+def marathon(device, frames: MarathonFrames) -> dict:
+    """test_marathon_loops_kidnap_merge on the port, over `frames`. Returns
+    the gates' numbers and what the reference test prints, per-frame host
+    seconds (the entry point returns a host pose, so each frame ends
+    synchronised), the capacity tiers visited and the synchronised time of
+    each loop correction and merge.
+
+    The early window is timed twice: in the run, and again after it on a
+    second tracker fed the same first MAR_EARLY[1] frames, whose poses must
+    equal the run's bit for bit (the same work). The slowdown bar reads that
+    second timing, taken like the late window at the end of the run, so
+    that a load on the host that lifts during the run cannot hide a
+    slowdown."""
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    vocab = marathon_vocabulary(frames, dev)
+    vocab_s = time.perf_counter() - t0
+    tr, closer, atl = marathon_tracker(vocab, dev)
+    corrections_ms, merges_ms = [], []
+
+    def timed(fn, sink, merged_only=False):
+        """fn, its synchronised milliseconds kept per call (per call that
+        merged, with merged_only)."""
+        def call(*a, **k):
+            _sync(dev)
+            n0, s = atl.n_merges, time.perf_counter()
+            r = fn(*a, **k)
+            _sync(dev)
+            if not merged_only or atl.n_merges > n0:
+                sink.append(1e3 * (time.perf_counter() - s))
+            return r
+        return call
+
+    # a correction: the closer's pose graph and global BA
+    closer._correct = timed(closer._correct, corrections_ms)
+    atl.try_merge = timed(atl.try_merge, merges_ms, merged_only=True)
+
+    wall, tiers, circle, head = [], [], [], []
+    map_id_after_kidnap = None
+    for n, ci, ts, got, sec in run_plan(tr, frames):
+        wall.append(sec)
+        tier = (tr.cfg.map.max_keyframes, tr.cfg.map.max_landmarks)
+        if not tiers or tiers[-1][1] != tier:
+            tiers.append((n, tier))
+        if ci is not None:
+            circle.append((ts, ci))
+        if n < MAR_EARLY[1]:
+            head.append(got)
+        if n == MAR_N_A + MAR_N_BLANK - 1:
+            map_id_after_kidnap = tr.map_id
+    tr.flush()
+    _sync(dev)
+
+    again, _, _ = marathon_tracker(vocab, dev)
+    rerun = list(run_plan(again, frames, MAR_EARLY[1]))
+    again.flush()
+    _sync(dev)
+    same = all(str(a[2]) == str(b[3][2]) and np.array_equal(a[0], b[3][0])
+               and np.array_equal(a[1], b[3][1]) for a, b in zip(head, rerun))
+
+    wall = np.asarray(wall)
+    rewall = np.asarray([x[4] for x in rerun])
+    early_in_run = float(np.median(wall[slice(*MAR_EARLY)]))
+    early = float(np.median(rewall[slice(*MAR_EARLY)]))
+    late = float(np.median(wall[slice(*MAR_LATE)]))
+    traj = {round(t, 6): (R, t_) for t, R, t_ in tr.trajectory}
+    est_ts, est_pos, gt_pos = [], [], []
+    for t, gi in circle:
+        e = traj.get(round(t, 6))
+        if e is None:
+            continue
+        est_ts.append(t)
+        est_pos.append(-e[0].T @ e[1])
+        gt_pos.append(frames.gt_t_wc[gi])
+    est_ts = np.asarray(est_ts)
+    rmse, _, n_assoc = ate.ate_rmse(est_ts, np.asarray(gt_pos), est_ts, np.asarray(est_pos))
+    n_circle = MAR_N_A + MAR_N_C
+    blocks = [200 / wall[b:b + 200].sum() for b in range(0, len(wall) - 199, 200)]
+    kf_live = len(tr.kf_order)
+    out = dict(
+        frames=len(wall), state=tr.track_state, kf_live=kf_live, n_kf=tr.n_kf,
+        max_keyframes=tr.cfg.map.max_keyframes, max_landmarks=tr.cfg.map.max_landmarks,
+        loops=closer.n_corrections, merges=atl.n_merges, reused=tr._kf_created_reused,
+        culled=tr.n_kf + tr._kf_created_reused - kf_live,
+        map_id_after_kidnap=map_id_after_kidnap, map_id=tr.map_id,
+        posed=len(est_ts), posed_share=len(est_ts) / n_circle, n_assoc=int(n_assoc),
+        ate_m=float(rmse), early_ms=1e3 * early, late_ms=1e3 * late,
+        early_in_run_ms=1e3 * early_in_run, rerun_same=same,
+        rerun_fps=float(len(rewall) / rewall.sum()),
+        head_fps=float(len(rewall) / wall[:len(rewall)].sum()),
+        fps=float(len(wall) / wall.sum()), fps_blocks=[float(b) for b in blocks],
+        frame_ms_p50=1e3 * float(np.median(wall)),
+        frame_ms_p95=1e3 * float(np.percentile(wall, 95)),
+        frame_ms_max=1e3 * float(wall.max()), tiers=tiers,
+        corrections_ms=corrections_ms, merges_ms=merges_ms, vocab_s=vocab_s,
+        vocab_words=vocab.n_words, wall_s=float(wall.sum()), vocab=vocab)
+    failed = []
+    if not (map_id_after_kidnap or 0) >= 1:
+        failed.append("kidnap did not spawn a new Atlas map")
+    if out["state"] != OK:
+        failed.append(f"final state {out['state']}")
+    if not out["loops"] >= 2:
+        failed.append(f"{out['loops']} loop corrections < 2")
+    if not out["merges"] >= 1:
+        failed.append("the return to the circle never merged back")
+    if not out["reused"] > 0:
+        failed.append("keyframe slots were never reused")
+    if not out["culled"] >= JAX_MAR_CULLED:
+        failed.append(f"culling removed {out['culled']} keyframes, fewer than the JAX "
+                      f"package's {JAX_MAR_CULLED} on this run")
+    if not out["max_keyframes"] <= MAR_MAX_TIER_KF:
+        failed.append(f"keyframe tier {out['max_keyframes']} > {MAR_MAX_TIER_KF}")
+    if not same:
+        failed.append("the early window's second run did other work than the first")
+    if not late <= MAR_SLOWDOWN * early:
+        failed.append(f"frame time grew {1e3 * early:.1f} -> {1e3 * late:.1f} ms")
+    if not len(est_ts) >= MAR_POSED * n_circle:
+        failed.append(f"{len(est_ts)} of {n_circle} circle frames posed")
+    if n_assoc != len(est_ts):
+        failed.append(f"ATE associated {n_assoc} of {len(est_ts)} frames")
+    if not rmse < MAR_ATE_M:
+        failed.append(f"circle ATE {rmse} m >= {MAR_ATE_M}")
+    out["failed"] = failed
+    return out
+
+
+def marathon_line(out: dict) -> str:
+    """The reference test's `[marathon]` line, for the port's run."""
+    return (f"[marathon] frames={out['frames']} kf_live={out['kf_live']} "
+            f"loops={out['loops']} merges={out['merges']} reused={out['reused']} "
+            f"ate={out['ate_m']:.3f} median_ms early={out['early_ms']:.0f} "
+            f"late={out['late_ms']:.0f}")

@@ -4,7 +4,9 @@ orb_slam3_vio_fixes_tpu/ops/fast.py).
 `fast_score_batch` is the wrapper of kernel K1 (`csrc/fast_score.cu`), which
 replaces the Pallas kernel `ops/pallas_kernels.py::fast_score_batch`: on a
 CUDA tensor it launches the kernel, on a CPU tensor it runs the plain twin
-`fast_score_plain` (the reference's `_fast_score_xla`).
+`fast_score_plain` (the reference's `_fast_score_xla`). `fast_score` and
+`detect` are the single-image entries: one image through the same wrapper
+at B = 1, then the reference's two-tier threshold and per-cell selection.
 """
 
 from __future__ import annotations
@@ -73,6 +75,42 @@ def fast_score_batch(imgs: torch.Tensor) -> torch.Tensor:
     kernels.check(rc, "slam_fast_score")
     kernels.count("fast_score")
     return out
+
+
+def fast_score(img: torch.Tensor) -> torch.Tensor:
+    """Dense FAST score of one (H, W) float32 image with integer-valued
+    intensities: K1 at B = 1 on a CUDA tensor, the plain twin on a CPU one.
+    Border pixels are 0."""
+    return fast_score_batch(img[None])[0]
+
+
+def detect(img: torch.Tensor, threshold: float = 20.0, threshold_min: float = 7.0,
+           cell: int = 35, max_per_cell: int = 4, budget: int = 256):
+    """FAST keypoints of one (H, W) image with the two-tier threshold (a
+    cell with a corner above `threshold` keeps only those, else its corners
+    above `threshold_min`), 3x3 NMS, the top `max_per_cell` of each cell by
+    iterated cell-max suppression (ties all kept), then the global top
+    `budget` by score, ties in index order.
+
+    Returns (idx (budget,) int32 flat indices y * W + x, score (budget,)
+    float32, valid (budget,) bool)."""
+    s = fast_score(img)[None]
+    keep = nms3(s)
+    strong = s > threshold
+    weak = s > threshold_min
+    cell_has_strong = _cell_pool_max(strong.to(torch.float32), cell) > 0.5
+    admissible = keep & torch.where(cell_has_strong, strong, weak)
+    zero = torch.zeros_like(s)
+    sc = torch.where(admissible, s, zero)
+    sc_work = sc
+    selected = torch.zeros_like(admissible)
+    for _ in range(max_per_cell):
+        is_cell_best = (sc_work >= _cell_pool_max(sc_work, cell)) & (sc_work > 0.0)
+        selected = selected | is_cell_best
+        sc_work = torch.where(is_cell_best, zero, sc_work)
+    final = torch.where(selected, sc, zero).reshape(-1)
+    score, idx = topk_stable(final, budget)
+    return idx.to(torch.int32), score, score > 0.0
 
 
 def nms3(score: torch.Tensor) -> torch.Tensor:

@@ -193,6 +193,13 @@ def extract_batch(imgs: torch.Tensor, cfg: ORBConfig) -> Features:
     return _describe_atlas(atlases, scores, layout, budgets, cfg)
 
 
+def extract(img: torch.Tensor, cfg: ORBConfig = ORBConfig()) -> Features:
+    """ORB features of one (H, W) float32 image: a B = 1 atlas through
+    `extract_batch` (K1 on a CUDA tensor)."""
+    f = extract_batch(img[None], cfg)
+    return Features(*(a[0] for a in f))
+
+
 def _describe_atlas(atlas, score_img, layout, budgets, cfg: ORBConfig) -> Features:
     ay, ax, score, valid, octave = fast_ops.detect_atlas_from_score(
         score_img, layout, budgets, threshold=cfg.fast_threshold,

@@ -140,7 +140,7 @@ def optimize_pose_graph(R, t, s, fixed, edges: PoseGraphEdges,
 
 
 def essential_edges_from_map(kf_R, kf_t, kf_valid, kf_prev, cov, max_edges: int,
-                             cov_threshold: int = 100, device="cpu"):
+                             cov_threshold: int = 100, *, device):
     """Edges from a host (numpy) map snapshot: the temporal kf_prev chain and
     the covisibility pairs with >= cov_threshold shared points, measured at
     the current relative poses."""

@@ -7,7 +7,8 @@ no popcount: the SWAR `matching.popcount32`). The inverted file is a dense
 (K, W) histogram matrix, so a query scores every keyframe in one L1
 reduction. Descriptors and nodes are int32 bit patterns of the reference's
 uint32 words. Training (hierarchical k-medians) is numpy, as in the
-reference; its inverse-document weights go through `assign_words` on the CPU.
+reference; its inverse-document weights go through `assign_words` on the
+device the caller names.
 """
 
 from __future__ import annotations
@@ -73,9 +74,11 @@ def _kmedians(descs: np.ndarray, k: int, rng, n_iter: int = 8) -> np.ndarray:
 
 
 def train(descs: np.ndarray, branching: int = 10, depth: int = 3, seed: int = 0,
-          idf: bool = True, device="cpu") -> Vocabulary:
+          idf: bool = True, *, device) -> Vocabulary:
     """Hierarchical k-medians over (N, 8) uint32 (or int32 bit-pattern)
-    descriptors; the same tree as the reference for the same seed."""
+    descriptors on the host, the same tree as the reference for the same
+    seed; the inverse-document weights count `assign_words` on `device`,
+    where the vocabulary is returned."""
     descs = np.ascontiguousarray(descs).view(np.uint32)
     rng = np.random.default_rng(seed)
     n_nodes = sum(branching ** (lv + 1) for lv in range(depth))
@@ -98,10 +101,10 @@ def train(descs: np.ndarray, branching: int = 10, depth: int = 3, seed: int = 0,
     n_words = branching ** depth
     weights = np.ones(n_words, np.float32)
     if idf and len(descs):
-        tmp = Vocabulary(torch.from_numpy(nodes.view(np.int32)),
-                         torch.ones(n_words), branching, depth)
-        words = assign_words(tmp, torch.from_numpy(descs.view(np.int32)),
-                             torch.ones(len(descs), dtype=torch.bool)).numpy()
+        tmp = from_numpy(nodes, np.ones(n_words, np.float32), branching, depth, device)
+        d = torch.as_tensor(descs.view(np.int32), device=device)
+        words = assign_words(tmp, d, torch.ones(len(descs), dtype=torch.bool,
+                                                device=device)).cpu().numpy()
         counts = np.bincount(words[words >= 0], minlength=n_words).astype(np.float32)
         weights = np.log(len(descs) / np.maximum(counts, 1.0)).astype(np.float32)
         weights = np.maximum(weights, 1e-3)
@@ -120,6 +123,14 @@ def to_numpy(vocab: Vocabulary):
     """(uint32 nodes, float32 weights) as the reference stores them."""
     return (vocab.nodes.cpu().numpy().view(np.uint32),
             vocab.weights.cpu().numpy())
+
+
+def save(vocab: Vocabulary, path: str) -> None:
+    """Write the reference's .npz layout (uint32 nodes, float32 weights,
+    int32 branching and depth), which the reference's `load` reads."""
+    nodes, weights = to_numpy(vocab)
+    np.savez_compressed(path, nodes=nodes, weights=weights,
+                        branching=np.int32(vocab.branching), depth=np.int32(vocab.depth))
 
 
 def load(path: str, device) -> Vocabulary:

@@ -31,6 +31,10 @@ from orb_slam3_vio_fixes_tpu_torch.evaluation import ate
 from test_apps import disk_seq  # noqa: F401  (fixture)
 from test_torch_slice import port_cfg
 
+pytest_plugins = ["torch_jax_release"]
+# every thread a test starts (shards, decoder, interface loops) ends with it
+pytestmark = pytest.mark.usefixtures("threads_end")
+
 torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -1,6 +1,8 @@
 """The port runs where JAX is absent: it imports with `jax` blocked, and no
 source of the package (nor chip_smoke.py) imports jax or the JAX package;
-the multi-device layer (`parallel`, `dryrun`) included.
+the multi-device layer (`parallel`, `dryrun`), the lifetime runs
+(`lifetime`) and the single-image, noise-model and ground-truth entries
+included.
 The card's machine has no PyYAML, PIL or matplotlib either: the port imports
 with all three blocked, and no source imports yaml (the dataset loaders and
 the viewer import PIL and matplotlib inside the functions that read or
@@ -75,6 +77,14 @@ def test_port_imports_without_jax():
         "from orb_slam3_vio_fixes_tpu_torch import dryrun, parallel\n"
         "from orb_slam3_vio_fixes_tpu_torch.parallel import mesh, sharded_ba, sharded_matching\n"
         "assert parallel.Mesh is mesh.Mesh\n"
+        "from orb_slam3_vio_fixes_tpu_torch import lifetime\n"
+        "from orb_slam3_vio_fixes_tpu_torch.ops.fast import detect, fast_score\n"
+        "from orb_slam3_vio_fixes_tpu_torch.ops.orb import extract\n"
+        "from orb_slam3_vio_fixes_tpu_torch.slam_map.vocabulary import save\n"
+        "from orb_slam3_vio_fixes_tpu_torch.io.synthetic import (\n"
+        "    DEFAULT_NOISE, SensorNoise, degrade_images, degrade_stereo, perturb_imu,\n"
+        "    load_gt_trajectory, make_gt_stereo_inertial_sequence, make_gt_stereo_sequence,\n"
+        "    make_world_along_trajectory)\n"
         "import chip_smoke\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -87,7 +97,7 @@ def test_no_jax_import_in_port_sources():
     assert len(files) > 15
     names = {str(f.relative_to(PKG)) for f in files if f.is_relative_to(PKG)}
     assert {"dryrun.py", "parallel/__init__.py", "parallel/mesh.py",
-            "parallel/sharded_ba.py", "parallel/sharded_matching.py"} <= names
+            "parallel/sharded_ba.py", "parallel/sharded_matching.py", "lifetime.py"} <= names
     bad = [(str(f.relative_to(ROOT)), m.group(0).strip())
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad

@@ -124,7 +124,7 @@ def run(seq):
     cfg, _ = configs(seq)
     rng = np.random.default_rng(0)
     vocab = tvoc.train(rng.integers(0, 2**32, (300, 8), dtype=np.uint32).view(np.int32),
-                       branching=4, depth=2, seed=0)
+                       branching=4, depth=2, seed=0, device="cpu")
     closer = CountingCloser(cfg.map.max_keyframes)
     atlas = tatlas.Atlas(port_cfg(cfg).map, vocab, cams(seq)[1],
                          ttr.octave_inv_sigma2(port_cfg(cfg).orb, "cpu"), device="cpu")

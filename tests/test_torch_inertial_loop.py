@@ -74,7 +74,7 @@ def run_loop(seq):
         f = build_stereo_frame_impl(q(seq.imgs_l[i]), q(seq.imgs_r[i]), torch.zeros(()), cam,
                                     bf, cfg.orb)
         pool.append(f.desc[f.valid].numpy())
-    vocab = voc.train(np.concatenate(pool), branching=10, depth=3, seed=0)
+    vocab = voc.train(np.concatenate(pool), branching=10, depth=3, seed=0, device="cpu")
     closer = lc.LoopCloser(
         vocab, cam, cfg.map.max_keyframes, tracking.octave_inv_sigma2(cfg.orb, "cpu"),
         lc.LoopConfig(min_gap_kfs=8, n_consistency=2, fix_scale=True, inertial=True,

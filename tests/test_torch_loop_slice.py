@@ -61,7 +61,7 @@ def _vocab(seq, cfg):
         f = build_stereo_frame_impl(q(seq.imgs_l[i]), q(seq.imgs_r[i]), torch.zeros(()),
                                     _cam(seq), seq.K[0, 0] * seq.baseline, cfg.orb)
         pool.append(f.desc[f.valid].numpy())
-    return voc.train(np.concatenate(pool), branching=10, depth=3, seed=0)
+    return voc.train(np.concatenate(pool), branching=10, depth=3, seed=0, device="cpu")
 
 
 def _run(seq, cfg, closer):

@@ -12,6 +12,7 @@ own test's bars (tracking OK, the relocalised centre within 0.1 m).
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from orb_slam3_vio_fixes_tpu_torch import system as sysm
@@ -26,6 +27,10 @@ from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary as voc
 from test_loop_closing import N_KF, _make_scenario
 from test_torch_loop import TCAM, jax_sim3_draws, port_state, port_vocab
 from test_torch_system import settings_path, seq, small_map, small_tracker_cfg  # noqa: F401
+
+pytest_plugins = ["torch_jax_release"]
+# every thread a test starts (shards, decoder, interface loops) ends with it
+pytestmark = pytest.mark.usefixtures("threads_end")
 
 torch.set_num_threads(2)
 
@@ -76,7 +81,8 @@ def test_loop_closer_mesh_correction(monkeypatch):
 def _vocab_of(img, n_features=400):
     img = torch.as_tensor(np.clip(np.rint(img), 0, 255).astype(np.float32))
     f0 = orb.extract_batch(img[None], orb.ORBConfig(n_features=n_features, n_levels=4))
-    return voc.train(f0.desc[0][f0.valid[0]].numpy(), branching=8, depth=2, seed=0)
+    return voc.train(f0.desc[0][f0.valid[0]].numpy(), branching=8, depth=2, seed=0,
+                     device="cpu")
 
 
 def test_slam_system_mesh_stereo(settings_path, seq):  # noqa: F811

@@ -42,6 +42,10 @@ import test_global_ba
 import test_vi_global_ba
 from test_ba import BF, CAM, make_scene, perturb
 
+pytest_plugins = ["torch_jax_release"]
+# every thread a test starts (shards, decoder, interface loops) ends with it
+pytestmark = pytest.mark.usefixtures("threads_end")
+
 torch.set_num_threads(2)
 
 N_DEV = 8

@@ -108,7 +108,7 @@ def test_essential_edges_from_map(seed):
     cov = rng.integers(0, 200, (K, K))
     cov = np.triu(cov, 1) + np.triu(cov, 1).T
     je = jpg.essential_edges_from_map(R_gt, t_gt, valid, prev, cov, 64)
-    te = tpg.essential_edges_from_map(R_gt, t_gt, valid, prev, cov, 64)
+    te = tpg.essential_edges_from_map(R_gt, t_gt, valid, prev, cov, 64, device="cpu")
     for f in ("idx_i", "idx_j", "valid", "weight"):
         np.testing.assert_array_equal(getattr(te, f).numpy(), np.asarray(getattr(je, f)),
                                       err_msg=f)

@@ -38,6 +38,10 @@ from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
 
 from test_apps import SETTINGS_YAML
 
+pytest_plugins = ["torch_jax_release"]
+# every thread a test starts (shards, decoder, interface loops) ends with it
+pytestmark = pytest.mark.usefixtures("threads_end")
+
 torch.set_num_threads(2)
 
 

@@ -360,7 +360,7 @@ def test_system_stereo_and_snapshot(settings_path, seq, tmp_path):
     cam = slam.settings.cam1
     f0 = build_stereo_frame_impl(q(seq.imgs_l[0]), q(seq.imgs_r[0]), torch.zeros(()), cam,
                                  slam.settings.bf, slam.cfg.orb)
-    vocab = voc.train(f0.desc[f0.valid].numpy(), branching=8, depth=2, seed=0)
+    vocab = voc.train(f0.desc[f0.valid].numpy(), branching=8, depth=2, seed=0, device="cpu")
     slam.vocab = vocab
     snap = str(tmp_path / "atlas.npz")
     slam.save_atlas(snap)
@@ -436,10 +436,10 @@ def test_vocab_checksum_mismatch(settings_path, seq, tmp_path):
         slam.track_stereo(seq.imgs_l[i], seq.imgs_r[i], seq.ts[i])
     rng = np.random.default_rng(0)
     pool = rng.integers(0, 2**32, size=(200, 8), dtype=np.uint32).view(np.int32)
-    slam.vocab = voc.train(pool, branching=4, depth=2, seed=0)
+    slam.vocab = voc.train(pool, branching=4, depth=2, seed=0, device="cpu")
     snap = str(tmp_path / "atlas2.npz")
     slam.save_atlas(snap)
-    slam2 = system(settings_path, voc.train(pool, branching=4, depth=2, seed=1))
+    slam2 = system(settings_path, voc.train(pool, branching=4, depth=2, seed=1, device="cpu"))
     with pytest.raises(Exception):
         slam2.load_atlas(snap)
 
@@ -521,7 +521,8 @@ def test_imu_stereo_atlas_load_resets_inertial_state(tmp_path):
                                                 accel_amp=0.6)
     img0 = torch.as_tensor(np.clip(np.rint(s.imgs_l[0]), 0, 255).astype(np.float32))
     f0 = orb.extract_batch(img0[None], orb.ORBConfig(n_features=400, n_levels=4))
-    vocab = voc.train(f0.desc[0][f0.valid[0]].numpy(), branching=8, depth=2, seed=0)
+    vocab = voc.train(f0.desc[0][f0.valid[0]].numpy(), branching=8, depth=2, seed=0,
+                      device="cpu")
     path = tmp_path / "imu_stereo.yaml"
     path.write_text(IMU_YAML)
     slam = sysm.SLAMSystem(str(path), sysm.Sensor.IMU_STEREO, vocab=vocab,

@@ -23,6 +23,10 @@ from orb_slam3_vio_fixes_tpu import vio as jvio
 from orb_slam3_vio_fixes_tpu_torch import vio as tvio
 from orb_slam3_vio_fixes_tpu_torch.vio import mavlink as mv
 
+pytest_plugins = ["torch_jax_release"]
+# every thread a test starts (shards, decoder, interface loops) ends with it
+pytestmark = pytest.mark.usefixtures("threads_end")
+
 torch.set_num_threads(2)
 
 

@@ -49,7 +49,7 @@ def vocabs(request, descs):
         return jvoc.load(path), tvoc.load(path, "cpu")
     b, d = (int(x) for x in shape[1:].split("d"))
     return (jvoc.train(descs, branching=b, depth=d, seed=0),
-            tvoc.train(descs, branching=b, depth=d, seed=0))
+            tvoc.train(descs, branching=b, depth=d, seed=0, device="cpu"))
 
 
 def test_vocabulary_arrays_agree(vocabs):
@@ -130,7 +130,7 @@ def test_db_query_and_grouped(vocabs, descs, min_score):
 def test_train_same_tree(descs, shape):
     b, d = shape
     jv = jvoc.train(descs[:600], branching=b, depth=d, seed=3)
-    tv = tvoc.train(descs[:600].view(np.int32), branching=b, depth=d, seed=3)
+    tv = tvoc.train(descs[:600].view(np.int32), branching=b, depth=d, seed=3, device="cpu")
     nodes, weights = tvoc.to_numpy(tv)
     np.testing.assert_array_equal(nodes, np.asarray(jv.nodes))
     np.testing.assert_array_equal(weights, np.asarray(jv.weights))
