@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero). Phases 1-5 run
-in this process; phases 7-22 run meanwhile in six worker processes on the
+in this process; phases 7-24 run meanwhile in six worker processes on the
 same card, grouped as WORKERS says, each group in its order; phase 6 runs
 last, once every worker has ended:
   1. card facts (nvidia-smi name and power limit); no CUDA -> exit non-zero;
@@ -29,7 +29,8 @@ last, once every worker has ended:
      once with columns per stereo and triangulation call), and the ATE
      within the stated bound of the JAX package's;
   6. timing: fps and p50/p95 frame ms of the counted pass of phase 5 (the
-     separate timing pass is cut) and each kernel at the path's shapes:
+     separate timing pass is cut) and each kernel at the path's shapes (K1
+     also on the one-image (1, 2380, 752) atlas of orb.extract):
      device time per call back to back
      (CUDA events) and the host's time to enqueue it, the kernel's own
      execution time (torch.profiler), bound, plain twin's time and the first
@@ -188,8 +189,27 @@ last, once every worker has ended:
      degraded, test_retrieval_pr's 256-keyframe recall and 1,024-keyframe
      grouped query; K1 exact on the culling scene's atlases, K2 on its
      densest local-map search mask.
+ 23. the GBA scaling run (scripts/bench_scaling.py's twin at the reference
+     script's size: 256 keyframes x 1,024 observations = 262,144 factors,
+     65,536 landmarks, the CG solver) on meshes of 1, 2, 4 and 8 shards,
+     all on the card: per count a warm-up (profiled at 1 and 2 shards) and
+     the script's 3 timed solves; every solve finite, the timed solves of
+     one count byte-identical, n > 1 within phase 20's bars of n = 1
+     (centres 2e-3 m, landmark median 1e-3 m). Prints the script's JSON
+     lines (seconds per solve, speedups), launches and idle share per
+     profiled solve, peak device memory, the largest shard's factor count
+     against the mean;
+ 24. the vocabulary trainers' twins: train_default_vocab at its full size
+     (72 frame builds, b = 10, d = 4, saved under build/vocab/; the corpus
+     within 1% of the JAX script's, 10^4 words), train_vocabulary on phase
+     5's 80 left images in memory (1,000 features, one-image atlases),
+     train_vocab_large at full width with its corpus cut to 60,000 and
+     trained at d = 4; retrieval_at_capacity on each trained vocabulary at
+     most one hit below the same run on the checked-in vocab_b10d4.npz; K1
+     exact on harvested pairs (B = 2) and on one-image atlases (B = 1), K2
+     on a harvested frame's stereo-match mask.
 Phase 14 also runs MONOCULAR (40 frames) and IMU_MONOCULAR (60) through
-track_monocular. Each of phases 8-17 and 20-22 prints its K1/K2 launches and
+track_monocular. Each of phases 8-17 and 20-24 prints its K1/K2 launches and
 peak device memory; phases 18-19 print their launches per pass and mode. The whole
 script runs in PyTorch's deterministic mode
 (utils/determinism.py, switched on before any CUDA work): one answer per
@@ -419,6 +439,24 @@ MARATHON_VOCAB_FRAMES = 8
 # Phase 21 takes its local-map search mask for K2 from a fresh tracker's
 # first frames, after the timed runs.
 MARATHON_CAPTURE_FRAMES = 40
+
+# Phase 23's warm-up solves profiled for launches and idle share: reading
+# the profiler's ~70k events per shard and solve back takes minutes at 8
+# shards.
+SCALING_PROFILED = (1, 2)
+
+# Phase 24: the corpus of the JAX package's scripts/train_default_vocab.py
+# harvest(), measured once on a CPU with JAX 0.9.0
+# (tests/test_torch_scripts.py::test_jax_default_vocab_corpus_reference
+# reproduces it); the port's harvest on the card must come within 1%.
+JAX_DEFAULT_CORPUS = 36726
+VOCAB_CORPUS_TOL = 0.01
+# train_vocab_large's corpus is cut to a tenth of the script's 600,000 and
+# trained at depth 4 (10^4 words), to keep the host's k-medians to minutes.
+VOCAB_LARGE_TARGET = 60_000
+VOCAB_LARGE_DEPTH = 4
+# train_vocabulary's images: phase 5's 80 left images, 1,000 features each.
+VOCAB_FEATURES = 1000
 
 # The card's peaks for the bounds: HBM3 rate of the H100 SXM, and its INT32
 # rate, a quarter of the 67 TFLOP/s float32 rate (an FMA counts 2 flops, and
@@ -1057,9 +1095,14 @@ def path_kernel_times(seq, device, path_masks, card) -> dict:
 
     rows = {}
     x = atlases_of(seq, 0, device)
-    rows["fast_score 2x2380x752"] = (
-        *cuda_ms(lambda: fast.fast_score_batch(x), 50, host=True),
-        cuda_ms(lambda: fast.fast_score_plain(x), 10), *k1_bound(x))
+    # the one-image atlas of orb.extract (monocular and RGB-D frames,
+    # train_vocabulary): frame 0's left image alone
+    x1 = x[:1].contiguous()
+    k1_shapes = {"fast_score 2x2380x752": x, "fast_score 1x2380x752": x1}
+    for label, xs in k1_shapes.items():
+        rows[label] = (
+            *cuda_ms(lambda: fast.fast_score_batch(xs), 50, host=True),
+            cuda_ms(lambda: fast.fast_score_plain(xs), 10), *k1_bound(xs))
     g = torch.Generator(device=device).manual_seed(2)
     cases = [(f"hamming_match {Q}x1024 {'cols' if cols else 'rows'}",
               *_k2_inputs(g, Q, 1024, "random", device), cols)
@@ -1080,8 +1123,9 @@ def path_kernel_times(seq, device, path_masks, card) -> dict:
     for label, dq, dt, mask, cols in cases:
         log(f"[profile] {card}: {label} device ms per call by kernel: "
             f"{profiled_ms(lambda: matching.hamming_match(dq, dt, mask, cols))}")
-    log(f"[profile] {card}: fast_score 2x2380x752 device ms per call by kernel: "
-        f"{profiled_ms(lambda: fast.fast_score_batch(x))}")
+    for label, xs in k1_shapes.items():
+        log(f"[profile] {card}: {label} device ms per call by kernel: "
+            f"{profiled_ms(lambda: fast.fast_score_batch(xs))}")
     for label, (k_ms, h_ms, p_ms, b_ms, b_by) in rows.items():
         pr1 = PR1_MS.get(label)
         log(f"[timing] {card}: {label} kernel_ms={k_ms!r} host_enqueue_ms={h_ms!r} "
@@ -2918,7 +2962,233 @@ def lifetime_path(device, card) -> dict:
     return total
 
 
-# Phases 7-22 run in worker processes, each its phases in this order, all at
+@contextlib.contextmanager
+def kernel_census(out: dict):
+    """Profile the block's device work (torch.profiler, CUDA activity): out
+    gets its device launches, device busy seconds, wall seconds and the
+    device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        yield out
+        sync()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and getattr(e, "device_time_total", 0) > 0]
+    busy = sum(e.device_time_total for e in events) / 1e6
+    out.update(launches=sum(e.count for e in events), device_busy_s=busy, wall_s=wall,
+               idle_share=1 - busy / wall, read_s=time.perf_counter() - t0)
+
+
+def scaling_path(device, card) -> dict:
+    """Phase 23: scripts/bench_scaling.py's twin at the reference script's
+    size on the card (262,144 factors, 65,536 landmarks, 256 keyframes,
+    the CG solver), on meshes of 1, 2, 4 and 8 shards all on this card:
+    per count a warm-up solve (at SCALING_PROFILED counts profiled:
+    launches, idle share) and the script's REPS timed ones. Gates: every
+    solve finite, the timed solves of one count byte-identical, and for
+    n > 1 the first timed solve within
+    phase 20's bars of n = 1's (camera centres MESH_CENTRE_M, the median
+    over observed landmarks MESH_LM_MEDIAN_M). Prints the twin's JSON lines,
+    peak device memory and the largest shard's factor count against the
+    mean. Returns the K1 / K2 launch counts (none: the solve is eager
+    PyTorch)."""
+    from orb_slam3_vio_fixes_tpu_torch import kernels
+    from orb_slam3_vio_fixes_tpu_torch.parallel import sharded_ba
+    from orb_slam3_vio_fixes_tpu_torch.scripts import bench_scaling as bs
+
+    t0 = time.perf_counter()
+    problem = bs.make_problem(**bs.PROBLEM, device=device)
+    f = problem.factors
+    L = int(problem.lm.shape[0])
+    observed = torch.zeros(L, dtype=torch.bool, device=device)
+    observed[f.lm_idx[f.valid]] = True
+    sync()
+    log(f"[scaling] problem: {problem.R.shape[0]} keyframes, {f.valid.numel()} factors "
+        f"({int(f.valid.sum())} valid), {L} landmarks ({int(observed.sum())} observed), "
+        f"{bs.CONFIG}; made in {time.perf_counter() - t0:.1f}s")
+
+    def centres(R, t):
+        return -(R.transpose(1, 2) @ t[..., None])[..., 0]
+
+    kernels.reset_launch_counts()
+    times, first = {}, None
+    for n in bs.COUNTS:
+        per_shard = bs.shard_factor_counts(problem, n)
+        _, part_valid, _ = sharded_ba.partition_layout(
+            f.lm_idx.cpu().numpy(), f.valid.cpu().numpy(), L, n)
+        census, outs = {}, []
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        times[n] = bs.bench_n(problem, n, bs.CONFIG, bs.REPS, outs,
+                              warmup=(lambda: kernel_census(census)) if n in SCALING_PROFILED
+                              else contextlib.nullcontext)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        R, t, lm, inlier = outs[0]
+        finite = all(bool(torch.isfinite(x).all()) for x in (R, t, lm))
+        same = all(torch.equal(a, b) for o in outs[1:] for a, b in zip(outs[0], o))
+        n_inl = int((inlier.cpu().numpy() & part_valid).sum())
+        if first is None:
+            first = (centres(R, t), lm)
+        dc = float((centres(R, t) - first[0]).norm(dim=-1).max())
+        lm_med = float((lm - first[1])[observed].norm(dim=-1).median())
+        log(json.dumps({"metric": "distributed_gba_solve_s", "devices": n,
+                        "value": round(times[n], 4), "unit": "s"}))
+        log(f"[scaling] {card}: shards={n} seconds_per_solve={times[n]!r} "
+            f"(mean of {bs.REPS} after a warm-up) warm-up: "
+            + (" ".join(f"{k}={v!r}" for k, v in census.items()) + " (profiled)" if census
+               else "not profiled")
+            + f" peak_device_mib={peak:.1f} "
+            f"factors per shard: largest={int(per_shard.max())} "
+            f"mean={float(per_shard.mean())!r} padded={n * int(per_shard.max())} of "
+            f"{f.valid.numel()}")
+        log(f"[scaling] gates: shards={n} centre_max_m={dc!r} landmark_median_m={lm_med!r} "
+            f"inliers={n_inl} reps_byte_identical={same} finite={finite}")
+        if not finite:
+            raise RuntimeError(f"scaling: a non-finite solve at {n} shards")
+        if not same:
+            raise RuntimeError(f"scaling: the {bs.REPS} solves at {n} shards differ")
+        if not (dc < MESH_CENTRE_M and lm_med < MESH_LM_MEDIAN_M):
+            raise RuntimeError(f"scaling: {n} shards part from one shard: {dc} m, {lm_med} m")
+    summary = bs.summary_of(times, torch.device(device))
+    log(json.dumps(summary))
+    log(f"[timing] {card}: sharded GBA at {f.valid.numel()} factors, seconds per solve by "
+        f"shard count {times} speedups T(1)/T(n) {summary['speedups']}")
+    return kernels.launch_counts()
+
+
+def vocab_path(device, card) -> dict:
+    """Phase 24: the three vocabulary trainers' twins on the card.
+    (a) train_default_vocab at its full size: harvest() (72 frame builds at
+    240x352, ORBConfig(512, 4)), train (b = 10, d = 4), save under
+    build/vocab/; gates: 10^4 words, the corpus within VOCAB_CORPUS_TOL of
+    the JAX script's, and retrieval_at_capacity's hits on it at most one
+    below the same run on the checked-in vocab_b10d4.npz. (b)
+    train_vocabulary.train_from_images on phase 5's 80 left images
+    (480x752, 1,000 features; images in memory, the card's machine has no
+    image reader); gates: 10^4 words, finite weights. (c) train_vocab_large
+    at full width (ORBConfig(1024, 8), noisy seeds included), its corpus cut
+    to VOCAB_LARGE_TARGET and trained at depth VOCAB_LARGE_DEPTH; gate: the
+    recall rule of (a). K1 exact on a harvested frame pair of (a) and of (c)
+    (B = 2) and on (b)'s one-image atlases (B = 1); K2 on (a)'s first
+    stereo-match mask. Returns the launch counts of each part."""
+    from orb_slam3_vio_fixes_tpu_torch import kernels, lifetime
+    from orb_slam3_vio_fixes_tpu_torch.ops import matching
+    from orb_slam3_vio_fixes_tpu_torch.scripts import train_default_vocab as tdv
+    from orb_slam3_vio_fixes_tpu_torch.scripts import train_vocab_large as tvl
+    from orb_slam3_vio_fixes_tpu_torch.scripts import train_vocabulary as ttv
+    from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary as voc
+
+    counts = {}
+
+    def counted(name, fn):
+        sync()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        counts[name] = kernels.launch_counts()
+        return out, time.perf_counter() - t
+
+    def idf_words(v):
+        return int((v.weights > 1e-3).sum())
+
+    def retrieval(key, name, v):
+        r, s = counted(f"vocab_retrieval_{key}", lambda: lifetime.retrieval_at_capacity(
+            device, vocab=v))
+        log(f"[vocab] retrieval_at_capacity on {name}: words={r['words']} hits={r['hits']} "
+            f"queries={r['queries']} recall={r['recall']!r} (the JAX test's bar for the "
+            f"10^5-word asset: 0.75) idf_words={idf_words(v)} wall={s:.1f}s")
+        return r
+
+    torch.cuda.reset_peak_memory_stats()
+    asset = voc.load(os.path.join(voc.ASSET_DIR, "vocab_b10d4.npz"), device)
+    ref = retrieval("b10d4", "vocab_b10d4.npz", asset)
+    failed = []
+
+    def recall_gate(name, r):
+        if r["hits"] < ref["hits"] - 1:
+            failed.append(f"{name}: {r['hits']} hits against {ref['hits']} on vocab_b10d4.npz")
+
+    # (a) train_default_vocab
+    record, tagged, masks = matcher_recorder({"stereo_row_match"})
+    with mock.patch.object(matching, "hamming_match", record), \
+            mock.patch.object(matching, "stereo_row_match",
+                              tagged("stereo_row_match", matching.stereo_row_match)):
+        corpus, harvest_s = counted("vocab_default", lambda: tdv.harvest(device))
+    t = time.perf_counter()
+    v_default = voc.train(corpus, branching=10, depth=4, seed=0, device=device)
+    train_s = time.perf_counter() - t
+    os.makedirs(os.path.dirname(tdv.DEFAULT_OUT), exist_ok=True)
+    voc.save(v_default, tdv.DEFAULT_OUT)
+    c = counts["vocab_default"]
+    n_frames = tdv.SEEDS * tdv.N_FRAMES // 2
+    off = abs(len(corpus) - JAX_DEFAULT_CORPUS) / JAX_DEFAULT_CORPUS
+    log(f"[vocab] train_default_vocab: frames={n_frames} corpus={len(corpus)} "
+        f"jax_corpus={JAX_DEFAULT_CORPUS} rel_diff={off!r} words={v_default.n_words} "
+        f"idf_words={idf_words(v_default)} saved={os.path.relpath(tdv.DEFAULT_OUT)} "
+        f"launches={c}")
+    log(f"[timing] {card}: train_default_vocab harvest={harvest_s:.1f}s train={train_s:.1f}s")
+    check_launches("vocab default harvest", c, n_frames, n_frames)
+    if v_default.n_words != 10**4 or off > VOCAB_CORPUS_TOL:
+        failed.append(f"default: {v_default.n_words} words, corpus {len(corpus)} against "
+                      f"{JAX_DEFAULT_CORPUS}")
+    recall_gate("default", retrieval("default", "train_default_vocab", v_default))
+    pair = next(iter(tdv.seed_frames(0)))
+    k1_on_frames("vocab default harvest", types.SimpleNamespace(
+        imgs_l=pair[0][None], imgs_r=pair[1][None]), (0,), device, n_levels=4)
+    k2_on_masks("vocab default harvest", masks, ("stereo_row_match",))
+
+    # (b) train_vocabulary on images in memory
+    seq = make_sequence()
+    images = [img.astype(np.float32) for img in seq.imgs_l]
+    v_images, images_s = counted("vocab_images", lambda: ttv.train_from_images(
+        images, 10, 4, VOCAB_FEATURES, device))
+    c = counts["vocab_images"]
+    finite = bool(torch.isfinite(v_images.weights).all())
+    log(f"[vocab] train_vocabulary: images={len(images)} of {images[0].shape} "
+        f"features={VOCAB_FEATURES} words={v_images.n_words} idf_words={idf_words(v_images)} "
+        f"finite={finite} launches={c}")
+    log(f"[timing] {card}: train_vocabulary extract + train={images_s:.1f}s")
+    if c["fast_score"] != len(images):
+        raise RuntimeError(f"vocab images: K1 launched {c['fast_score']} times for "
+                           f"{len(images)} images")
+    if v_images.n_words != 10**4 or not finite:
+        failed.append(f"images: {v_images.n_words} words, finite weights {finite}")
+    k1_one_image("vocab train_vocabulary", [(seq.imgs_l[i],) for i in range(len(images))],
+                 device)
+
+    # (c) train_vocab_large at full width, its corpus cut
+    log(f"[vocab] cut: train_vocab_large harvest(target={VOCAB_LARGE_TARGET}) of the "
+        f"script's 600,000, trained at b=10, d={VOCAB_LARGE_DEPTH} (the script: d=5)")
+    corpus_l, harvest_s = counted("vocab_large", lambda: tvl.harvest(
+        VOCAB_LARGE_TARGET, device))
+    t = time.perf_counter()
+    v_large = voc.train(corpus_l, branching=10, depth=VOCAB_LARGE_DEPTH, seed=0, device=device)
+    train_s = time.perf_counter() - t
+    c = counts["vocab_large"]
+    log(f"[vocab] train_vocab_large: frames={c['fast_score']} corpus={len(corpus_l)} "
+        f"words={v_large.n_words} idf_words={idf_words(v_large)} launches={c}")
+    log(f"[timing] {card}: train_vocab_large harvest={harvest_s:.1f}s train={train_s:.1f}s")
+    if c["fast_score"] < 64 or c["fast_score"] % 32:
+        raise RuntimeError(f"vocab large: K1 launched {c['fast_score']} times, not whole "
+                           f"seeds of 32 frames")
+    check_launches("vocab large harvest", c, c["fast_score"], c["fast_score"])
+    recall_gate("large", retrieval("large", "train_vocab_large (cut)", v_large))
+    pair = next(iter(tvl.seed_frames(1)))
+    k1_on_frames("vocab large harvest (degraded seed 1)", types.SimpleNamespace(
+        imgs_l=pair[0][None], imgs_r=pair[1][None]), (0,), device, n_levels=8)
+    log(f"[vocab] peak_device_mib={torch.cuda.max_memory_allocated() / 2**20:.1f}")
+    if failed:
+        raise RuntimeError(f"vocab gates failed: {failed}")
+    return counts
+
+
+# Phases 7-24 run in worker processes, each its phases in this order, all at
 # once on the one card: every phase is host-bound (the device sits idle 0.91-
 # 0.94 of a frame, PERF.md section 5), so one process leaves 7 of the
 # machine's 8 cores and most of the card unused, and the phases one after the
@@ -2926,9 +3196,9 @@ def lifetime_path(device, card) -> dict:
 # phase_repeat's runs are. The kernel timings (phase 6) run after every
 # worker has ended, on a card that runs nothing else.
 WORKERS = (("marathon",),
-           ("si_loop",),
+           ("si_loop", "vocab"),
            ("si_atlas", "mono_inertial", "mesh"),
-           ("facade", "app"),
+           ("facade", "app", "scaling"),
            ("pipelined", "fisheye", "lifetime"),
            ("stereo_inertial", "loop", "relocalization", "atlas", "mono"))
 
@@ -2983,6 +3253,8 @@ def run_phases(names, card, report) -> None:
         "mesh": lambda: mesh_path(vocab(), device, card),
         "marathon": lambda: {"marathon": marathon_path(device, card)},
         "lifetime": lambda: {"lifetime": lifetime_path(device, card)},
+        "scaling": lambda: {"scaling": scaling_path(device, card)},
+        "vocab": lambda: vocab_path(device, card),
     }
     for name in names:
         t = time.perf_counter()
@@ -3086,7 +3358,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     workers_by_path, workers_s = run_workers(card, main_work)
-    log(f"[phase] phases 5, 7-22 (in {len(WORKERS) + 1} processes) "
+    log(f"[phase] phases 5, 7-24 (in {len(WORKERS) + 1} processes) "
         f"seconds={time.perf_counter() - t0:.1f}")
     # phase 6 on a card that runs nothing else
     times = path_kernel_times(here["seq"], device, here["path_masks"], card)
@@ -3108,7 +3380,8 @@ def main() -> int:
          "replaces": "orb_slam3_vio_fixes_tpu/ops/pallas_kernels.py:63",
          "launches": counts["fast_score"], **here["k1"],
          "launches_by_path": {k: c["fast_score"] for k, c in by_path.items()},
-         **numbers("fast_score 2x2380x752")},
+         **numbers("fast_score 2x2380x752"),
+         "second_shape": {"shape": [1, 2380, 752], **numbers("fast_score 1x2380x752")}},
         {"name": "hamming_match", "route": "cuda", "source": src + "hamming.cu",
          "replaces": "orb_slam3_vio_fixes_tpu/ops/matching.py:39",
          "launches": counts["hamming_match"], **here["k2"],

@@ -1,5 +1,5 @@
 """Read the gated values of the phases that run a window VI BA (7, 12-15,
-17, 19) and of phases 20-22 out of chip_smoke.py logs, one column per log.
+17, 19) and of phases 20-24 out of chip_smoke.py logs, one column per log.
 
     python -m orb_slam3_vio_fixes_tpu_torch.gated_values LOG [LOG ...]
 
@@ -61,6 +61,21 @@ ROWS = (
     ("22 retrieval recall", "[lifetime] retrieval_capacity:", r"recall=" + NUM, 0),
     ("22 grouped top-1", "[lifetime] retrieval_grouped:", r"top1=" + NUM, 0),
     ("22 grouped top-3", "[lifetime] retrieval_grouped:", r"top3=" + NUM, 0),
+    ("23 2 shards centre m", "[scaling] gates: shards=2 ", r"centre_max_m=" + NUM, 0),
+    ("23 4 shards centre m", "[scaling] gates: shards=4 ", r"centre_max_m=" + NUM, 0),
+    ("23 8 shards centre m", "[scaling] gates: shards=8 ", r"centre_max_m=" + NUM, 0),
+    ("23 8 shards lm median m", "[scaling] gates: shards=8 ", r"landmark_median_m=" + NUM, 0),
+    ("23 8 shards inliers", "[scaling] gates: shards=8 ", r"inliers=" + NUM, 0),
+    ("23 8 shards reps byte-identical", "[scaling] gates: shards=8 ",
+     r"reps_byte_identical=" + NUM, 0),
+    ("24 default corpus", "[vocab] train_default_vocab:", r" corpus=" + NUM, 0),
+    ("24 hits on vocab_b10d4.npz", "[vocab] retrieval_at_capacity on vocab_b10d4",
+     r"hits=" + NUM, 0),
+    ("24 hits on the default", "[vocab] retrieval_at_capacity on train_default_vocab",
+     r"hits=" + NUM, 0),
+    ("24 large corpus", "[vocab] train_vocab_large:", r" corpus=" + NUM, 0),
+    ("24 hits on the large (cut)", "[vocab] retrieval_at_capacity on train_vocab_large",
+     r"hits=" + NUM, 0),
 )
 
 

@@ -1,8 +1,8 @@
 """The port runs where JAX is absent: it imports with `jax` blocked, and no
 source of the package (nor chip_smoke.py) imports jax or the JAX package;
 the multi-device layer (`parallel`, `dryrun`), the lifetime runs
-(`lifetime`) and the single-image, noise-model and ground-truth entries
-included.
+(`lifetime`), the single-image, noise-model and ground-truth entries and
+the tools (`scripts`) included.
 The card's machine has no PyYAML, PIL or matplotlib either: the port imports
 with all three blocked, and no source imports yaml (the dataset loaders and
 the viewer import PIL and matplotlib inside the functions that read or
@@ -85,6 +85,9 @@ def test_port_imports_without_jax():
         "    DEFAULT_NOISE, SensorNoise, degrade_images, degrade_stereo, perturb_imu,\n"
         "    load_gt_trajectory, make_gt_stereo_inertial_sequence, make_gt_stereo_sequence,\n"
         "    make_world_along_trajectory)\n"
+        "from orb_slam3_vio_fixes_tpu_torch.scripts import (\n"
+        "    bench_scaling, evaluate_ate, train_default_vocab, train_vocab_large,\n"
+        "    train_vocabulary)\n"
         "import chip_smoke\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -97,7 +100,10 @@ def test_no_jax_import_in_port_sources():
     assert len(files) > 15
     names = {str(f.relative_to(PKG)) for f in files if f.is_relative_to(PKG)}
     assert {"dryrun.py", "parallel/__init__.py", "parallel/mesh.py",
-            "parallel/sharded_ba.py", "parallel/sharded_matching.py", "lifetime.py"} <= names
+            "parallel/sharded_ba.py", "parallel/sharded_matching.py", "lifetime.py",
+            "scripts/__init__.py", "scripts/bench_scaling.py", "scripts/evaluate_ate.py",
+            "scripts/train_default_vocab.py", "scripts/train_vocab_large.py",
+            "scripts/train_vocabulary.py"} <= names
     bad = [(str(f.relative_to(ROOT)), m.group(0).strip())
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad
