@@ -40,6 +40,7 @@ from orb_slam3_vio_fixes_tpu_torch.imu import preintegration as pre
 from orb_slam3_vio_fixes_tpu_torch.optim import inertial_init as ii
 from orb_slam3_vio_fixes_tpu_torch.optim import vi_ba
 from orb_slam3_vio_fixes_tpu_torch.optim import vi_global_ba as vg
+from orb_slam3_vio_fixes_tpu_torch.runtime import tracing
 from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
 from orb_slam3_vio_fixes_tpu_torch.utils import lie
 from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera
@@ -141,27 +142,32 @@ def vi_track_step(state: ms.MapState, prev_obs, prev_octave, prev_angle,
     Returns (cur_body, next_H, cur_obs, cur_pred, R_pred, t_pred, R2, t2,
     packed) with packed = [R2 (9), t2 (3), n_m, n_inl2, close tracked,
     close untracked, v (3)]."""
-    pre_frame = pre.integrate(imu_window, body.bg, body.ba, calib)
-    R2p, p2p, v2p = pre.predict_state(body.R_wb, body.p_wb, body.v, body.bg, body.ba,
-                                      pre_frame)
+    with tracing.span("vi_track_step.preintegrate"):
+        pre_frame = pre.integrate(imu_window, body.bg, body.ba, calib)
+        R2p, p2p, v2p = pre.predict_state(body.R_wb, body.p_wb, body.v, body.bg, body.ba,
+                                          pre_frame)
     cur_pred = BodyState(R2p, p2p, v2p, body.bg, body.ba)
     R_cb, t_cb = calib.cam_from_body()
     R_pred, t_pred = cam_from_body(R2p, p2p, R_cb, t_cb)
-    cur_obs, n_m = trk.match_previous(state, prev_obs, prev_octave, prev_angle, R_pred,
-                                      t_pred, frame, cam, bf, th_narrow, cfg)
-    if int(n_m) < 20:
-        cur_obs, n_m = trk.match_previous(state, prev_obs, prev_octave, prev_angle,
-                                          R_pred, t_pred, frame, cam, bf, th_wide, cfg)
-    cur_body, cur_obs, _, _ = vi_motion_opt(
-        state, body, prior_H, cur_pred, pre_frame, frame, cur_obs, cam, bf, calib, cfg,
-        n_rounds=1, n_iters=4, want_prior=False)
+    with tracing.span("vi_track_step.match"):
+        cur_obs, n_m = trk.match_previous(state, prev_obs, prev_octave, prev_angle, R_pred,
+                                          t_pred, frame, cam, bf, th_narrow, cfg)
+        if trk.retry_wide(n_m):
+            cur_obs, n_m = trk.match_previous(state, prev_obs, prev_octave, prev_angle,
+                                              R_pred, t_pred, frame, cam, bf, th_wide, cfg)
+    with tracing.span("vi_track_step.opt"):
+        cur_body, cur_obs, _, _ = vi_motion_opt(
+            state, body, prior_H, cur_pred, pre_frame, frame, cur_obs, cam, bf, calib, cfg,
+            n_rounds=1, n_iters=4, want_prior=False)
     R1, t1 = cam_from_body(cur_body.R_wb, cur_body.p_wb, R_cb, t_cb)
     # search only: the joint optimisation below re-optimises the pose
-    cur_obs = trk.local_map_search(state, R1, t1, frame, cur_obs, window_kfs, cam, bf,
-                                   th_local, cfg)
-    cur_body, cur_obs, n_inl2, next_H = vi_motion_opt(
-        state, body, prior_H, cur_body, pre_frame, frame, cur_obs, cam, bf, calib, cfg,
-        n_rounds=2, n_iters=5)
+    with tracing.span("vi_track_step.local_map_search"):
+        cur_obs = trk.local_map_search(state, R1, t1, frame, cur_obs, window_kfs, cam, bf,
+                                       th_local, cfg)
+    with tracing.span("vi_track_step.opt"):
+        cur_body, cur_obs, n_inl2, next_H = vi_motion_opt(
+            state, body, prior_H, cur_body, pre_frame, frame, cur_obs, cam, bf, calib, cfg,
+            n_rounds=2, n_iters=5)
     R2, t2 = cam_from_body(cur_body.R_wb, cur_body.p_wb, R_cb, t_cb)
     packed = torch.cat([trk._packed(R2, t2, n_m, n_inl2, frame, cur_obs, cam, bf, cfg),
                         cur_body.v])
@@ -390,7 +396,7 @@ class StereoInertialTracker(trk.StereoTracker):
                              st.kf_ba[k].clone())
 
     def _pose_out(self):
-        return self.R.cpu().numpy(), self.t.cpu().numpy(), self.track_state
+        return self._pose_host() + (self.track_state,)
 
     # -- per-frame entry points --
 
@@ -453,13 +459,15 @@ class StereoInertialTracker(trk.StereoTracker):
         th_l = self._local_search_th()
         cur_pred = vel_step = None
         if self.imu_ready:
-            (cur_body, next_H, cur_obs, cur_pred, R_pred, t_pred, R2, t2,
-             packed) = vi_track_step(
-                self.state, self.prev_obs, self.prev_octave, self.prev_angle,
-                self.body, self.prior_H,
-                self._upload(self._pad(imu_np, self.icfg.frame_samples)), frame,
-                window, self.cam, self.bf, self.calib, th_n, th_w, th_l, cfg)
-            packed_np = packed.cpu().numpy()        # the one pull
+            with tracing.span("vi_track_step"):
+                (cur_body, next_H, cur_obs, cur_pred, R_pred, t_pred, R2, t2,
+                 packed) = vi_track_step(
+                    self.state, self.prev_obs, self.prev_octave, self.prev_angle,
+                    self.body, self.prior_H,
+                    self._upload(self._pad(imu_np, self.icfg.frame_samples)), frame,
+                    window, self.cam, self.bf, self.calib, th_n, th_w, th_l, cfg)
+            with tracing.span("track.pull.wait"):
+                packed_np = packed.cpu().numpy()    # the one pull
             self.body = cur_body
             self.prior_H = next_H
             self.velocity_log.append(packed_np[16:19])
@@ -467,11 +475,13 @@ class StereoInertialTracker(trk.StereoTracker):
             # pre-init: the visual tracker's per-frame path
             has_vel = self.vel is not None
             dRv, dtv = self.vel if has_vel else (None, None)
-            R2, t2, cur_obs, packed, R_pred, t_pred, *vel_step = trk.track_step_impl(
-                self.state, self.prev_obs, self.prev_octave, self.prev_angle,
-                self.R, self.t, dRv, dtv, frame, window, self.cam, self.bf,
-                th_n, th_w, th_l, cfg, has_vel=has_vel)
-            packed_np = packed.cpu().numpy()
+            with tracing.span("track_step"):
+                R2, t2, cur_obs, packed, R_pred, t_pred, *vel_step = trk.track_step_impl(
+                    self.state, self.prev_obs, self.prev_octave, self.prev_angle,
+                    self.R, self.t, dRv, dtv, frame, window, self.cam, self.bf,
+                    th_n, th_w, th_l, cfg, has_vel=has_vel)
+            with tracing.span("track.pull.wait"):
+                packed_np = packed.cpu().numpy()
             # the body-state shadow the IMU initialisation starts from
             self.body = self._body_of(R2, t2, *self.body[2:])
         self._frame_stats = packed_np[12:16].astype(np.int64)
@@ -481,10 +491,12 @@ class StereoInertialTracker(trk.StereoTracker):
             # reference-keyframe fallback (windowless descriptor matching),
             # accepted only on a decisive win: a marginal fallback pose
             # rebases the body state off the IMU-consistent track
-            R2f, t2f, obs_f, packed_f = trk.track_reference_kf(
-                self.state, self.ref_kf, R_pred, t_pred, frame, window, self.cam,
-                self.bf, th_l, cfg)
-            n_f = int(packed_f[13].cpu())
+            with tracing.span("track_ref_kf"):
+                R2f, t2f, obs_f, packed_f = trk.track_reference_kf(
+                    self.state, self.ref_kf, R_pred, t_pred, frame, window, self.cam,
+                    self.bf, th_l, cfg)
+                with tracing.span("track_ref_kf.wait"):
+                    n_f = int(packed_f[13].cpu())
             if n_f >= max(cfg.min_kf_inliers, 3 * max(n_inl2, 1)):
                 R2, t2, cur_obs = R2f, t2f, obs_f
                 packed_np = None
@@ -628,7 +640,8 @@ class StereoInertialTracker(trk.StereoTracker):
             if (self.n_kf >= self.icfg.init_min_kfs
                     and len(self.kf_windows) + 1 >= self.icfg.init_min_kfs
                     and ts - self.t_first_kf >= self.icfg.init_min_time):
-                self._initialize_imu()
+                with tracing.span("imu_init"):
+                    self._initialize_imu()
         else:
             self._run_inertial_ba(kf_id)
             self._rebase_on(kf_id)
@@ -767,10 +780,11 @@ class StereoInertialTracker(trk.StereoTracker):
         # kf_windows[k] spans from k's live predecessor)
         ids = (self.kf_order[-W:][::-1] + [-1] * W)[:W]
         kf_imu, imu_valid = self._window_imu(ids)
-        self.state = inertial_local_ba(
-            self.state, self._upload(np.asarray(ids, np.int64)), kf_imu, imu_valid,
-            self.cam, self.bf, self.calib, self.cfg, self.icfg,
-            hold_single_view=init and self.hold_single_view_at_init)
+        with tracing.span("vi_local_ba"):
+            self.state = inertial_local_ba(
+                self.state, self._upload(np.asarray(ids, np.int64)), kf_imu, imu_valid,
+                self.cam, self.bf, self.calib, self.cfg, self.icfg,
+                hold_single_view=init and self.hold_single_view_at_init)
         self.n_vi_ba += 1
 
     def _initialize_imu(self):

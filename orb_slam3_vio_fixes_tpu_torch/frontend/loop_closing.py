@@ -27,6 +27,7 @@ from orb_slam3_vio_fixes_tpu_torch.ops import sim3 as sim3_ops
 from orb_slam3_vio_fixes_tpu_torch.optim import global_ba as gba_mod
 from orb_slam3_vio_fixes_tpu_torch.optim import pose_graph as pg
 from orb_slam3_vio_fixes_tpu_torch.parallel import sharded_ba
+from orb_slam3_vio_fixes_tpu_torch.runtime import tracing
 from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
 from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary as voc
 from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera, project, unproject
@@ -243,7 +244,9 @@ class LoopCloser:
             rs[i] = s
         ids, _ = detect_candidates(self.db, state, hist, kf_id, rs, cfg.min_score,
                                    cfg.n_candidates)
-        return [int(i) for i in ids.cpu().numpy() if i >= 0]
+        with tracing.span("loop.candidates.wait"):
+            ids = ids.cpu().numpy()
+        return [int(i) for i in ids if i >= 0]
 
     def on_keyframe(self, state: ms.MapState, kf_id: int, n_kf: int,
                     recent_slots=None):
@@ -251,18 +254,24 @@ class LoopCloser:
         its gate scalars), the temporal-consistency gate, and the correction.
         Returns (state, LoopResult or None)."""
         cfg = self.cfg
-        hist = self.add_keyframe(state, kf_id)
+        with tracing.span("loop.query"):
+            hist = self.add_keyframe(state, kf_id)
+            cands = self.detect(state, kf_id, hist, recent_slots=recent_slots)
+        tracing.count("loop.candidates", len(cands))
         hit = None
-        for cand in self.detect(state, kf_id, hist, recent_slots=recent_slots):
-            n_m, n_ransac, n_proj, sim = verify_candidate(
-                self.gen, state, kf_id, cand, self.cam, self.inv_sigma2_oct, cfg.n_hyp,
-                cfg.fix_scale, n_levels=self.n_levels, scale=self.scale,
-                guided_radius=cfg.guided_radius, verify_radius=cfg.verify_radius,
-                proj_max_dist=cfg.proj_max_dist)
-            gates = torch.stack([n_m.to(torch.float32), n_ransac.to(torch.float32),
-                                 n_proj.to(torch.float32),
-                                 sim.n_inliers.to(torch.float32),
-                                 sim.s.to(torch.float32)]).cpu().numpy()
+        for cand in cands:
+            with tracing.span("loop.verify"):
+                n_m, n_ransac, n_proj, sim = verify_candidate(
+                    self.gen, state, kf_id, cand, self.cam, self.inv_sigma2_oct, cfg.n_hyp,
+                    cfg.fix_scale, n_levels=self.n_levels, scale=self.scale,
+                    guided_radius=cfg.guided_radius, verify_radius=cfg.verify_radius,
+                    proj_max_dist=cfg.proj_max_dist)
+                gates = torch.stack([n_m.to(torch.float32), n_ransac.to(torch.float32),
+                                     n_proj.to(torch.float32),
+                                     sim.n_inliers.to(torch.float32),
+                                     sim.s.to(torch.float32)])
+                with tracing.span("loop.gates.wait"):
+                    gates = gates.cpu().numpy()
             n_m, n_ransac, n_proj, n_ref = (int(x) for x in gates[:4])
             if (n_m < cfg.min_bow_matches or n_ransac < cfg.min_sim3_inliers
                     or n_ref < cfg.min_refine_inliers
@@ -290,12 +299,15 @@ class LoopCloser:
             return state, LoopResult(cand, n_m, n_ref, False, n_proj)
         self._pending_group = None
         self._pending_count = 0
-        state = self._correct(state, kf_id, cand, sim, n_kf)
+        with tracing.span("loop.correct"):
+            state = self._correct(state, kf_id, cand, sim, n_kf)
         self.n_corrections += 1
         return state, LoopResult(cand, n_m, n_ref, True, n_proj)
 
     def _covisible_group(self, state: ms.MapState, cand: int):
-        row = ms.covisibility(state)[cand].cpu().numpy()
+        row = ms.covisibility(state)[cand]
+        with tracing.span("loop.covis.wait"):
+            row = row.cpu().numpy()
         group = {int(i) for i in np.nonzero(row >= 15)[0]}
         group.add(int(cand))
         return group

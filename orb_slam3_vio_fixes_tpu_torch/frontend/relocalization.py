@@ -20,6 +20,7 @@ import torch
 from orb_slam3_vio_fixes_tpu_torch.frontend import tracking as trk
 from orb_slam3_vio_fixes_tpu_torch.frontend.frame import FrameData
 from orb_slam3_vio_fixes_tpu_torch.ops import matching, pnp
+from orb_slam3_vio_fixes_tpu_torch.runtime import tracing
 from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
 from orb_slam3_vio_fixes_tpu_torch.slam_map import vocabulary as voc
 from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera
@@ -141,24 +142,25 @@ class Relocalizer:
                    tcfg: trk.TrackerConfig):
         """(R, t, cur_obs, n_inliers) or None: the whole-map search first when
         a mesh is set, then the BoW candidates, one pull per candidate."""
-        if self.mesh is not None:
-            hit = self._relocalize_global(state, frame, cam, bf, tcfg)
-            if hit is not None:
-                return hit
-        cov = None
-        W = tcfg.ba_window + tcfg.ba_fixed
-        for cand in self.candidates(state, frame):
-            if cov is None:
-                cov = ms.covisibility(state).cpu().numpy()
-            row = cov[cand].copy()
-            row[cand] = row.max() + 1
-            top = np.argsort(-row)[:W]
-            top = np.where(row[top] > 0, top, -1)
-            ok, R, t, cur_obs, n_inl, _ = reloc_attempt(
-                self.gen, state, cand, frame, torch.as_tensor(top, device=self.device),
-                cam, bf, self.cfg, tcfg)
-            ok_n = torch.stack([ok.to(torch.int64), n_inl.to(torch.int64)]).cpu().numpy()
-            if ok_n[0]:
-                self.n_success += 1
-                return R, t, cur_obs, int(ok_n[1])
-        return None
+        with tracing.span("reloc"):
+            if self.mesh is not None:
+                hit = self._relocalize_global(state, frame, cam, bf, tcfg)
+                if hit is not None:
+                    return hit
+            cov = None
+            W = tcfg.ba_window + tcfg.ba_fixed
+            for cand in self.candidates(state, frame):
+                if cov is None:
+                    cov = ms.covisibility(state).cpu().numpy()
+                row = cov[cand].copy()
+                row[cand] = row.max() + 1
+                top = np.argsort(-row)[:W]
+                top = np.where(row[top] > 0, top, -1)
+                ok, R, t, cur_obs, n_inl, _ = reloc_attempt(
+                    self.gen, state, cand, frame, torch.as_tensor(top, device=self.device),
+                    cam, bf, self.cfg, tcfg)
+                ok_n = torch.stack([ok.to(torch.int64), n_inl.to(torch.int64)]).cpu().numpy()
+                if ok_n[0]:
+                    self.n_success += 1
+                    return R, t, cur_obs, int(ok_n[1])
+            return None

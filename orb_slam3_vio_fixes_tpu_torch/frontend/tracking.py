@@ -42,6 +42,7 @@ from orb_slam3_vio_fixes_tpu_torch.frontend.frame import (FrameData,
 from orb_slam3_vio_fixes_tpu_torch.ops import image as image_ops
 from orb_slam3_vio_fixes_tpu_torch.ops import matching, orb
 from orb_slam3_vio_fixes_tpu_torch.optim import ba_core
+from orb_slam3_vio_fixes_tpu_torch.runtime import tracing
 from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
 from orb_slam3_vio_fixes_tpu_torch.utils import lie
 from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera, f32, in_image, project, unproject
@@ -119,6 +120,16 @@ def match_previous(state, prev_obs, prev_octave, prev_angle, R_pred, t_pred,
     return cur_obs, matched.sum()
 
 
+def retry_wide(n_m) -> bool:
+    """The wide-radius retry's host branch: fewer than 20 motion-model
+    matches, read from the device (one sync)."""
+    with tracing.span("match.retry.wait"):
+        wide = int(n_m) < 20
+    if wide:
+        tracing.count("match.wide_retries")
+    return wide
+
+
 def _packed(R2, t2, n_m, n_inl2, frame: FrameData, cur_obs, cam: Camera, bf: float,
             cfg: TrackerConfig) -> torch.Tensor:
     """The per-frame decision vector pulled by the host in one copy: pose
@@ -159,7 +170,7 @@ def track_step_impl(state, prev_obs, prev_octave, prev_angle, R_prev, t_prev,
         wide = n_m < 20
         cur_obs = torch.where(wide, obs_w, cur_obs)
         n_m = torch.where(wide, n_w, n_m)
-    elif int(n_m) < 20:
+    elif retry_wide(n_m):
         cur_obs, n_m = match_previous(state, prev_obs, prev_octave, prev_angle,
                                       R_pred, t_pred, frame, cam, bf, th_wide, cfg)
     R1, t1, cur_obs, _ = pose_opt_from_obs(state, R_pred, t_pred, frame, cur_obs,
@@ -572,13 +583,15 @@ class StereoTracker:
 
     def _build_stereo(self, img_l, img_r, ts: float) -> FrameData:
         """Rectified row matching, or ray triangulation with a rig."""
-        imgs = self._upload_pair(img_l, img_r)
-        if self.rig is not None:
-            cam2, R_12, t_12 = self.rig
-            return build_fisheye_stereo_frame(imgs[0], imgs[1], self._ts(ts), self.cam,
-                                              cam2, R_12, t_12, self.cfg.orb)
-        return build_stereo_frame_impl(imgs[0], imgs[1], self._ts(ts), self.cam, self.bf,
-                                       self.cfg.orb)
+        with tracing.span("frame_build"):
+            with tracing.span("frame_build.upload"):
+                imgs = self._upload_pair(img_l, img_r)
+            if self.rig is not None:
+                cam2, R_12, t_12 = self.rig
+                return build_fisheye_stereo_frame(imgs[0], imgs[1], self._ts(ts), self.cam,
+                                                  cam2, R_12, t_12, self.cfg.orb)
+            return build_stereo_frame_impl(imgs[0], imgs[1], self._ts(ts), self.cam,
+                                           self.bf, self.cfg.orb)
 
     def _build_rgbd(self, img, depth, ts: float) -> FrameData:
         """The depth map goes up as metric float32, never quantised."""
@@ -657,10 +670,11 @@ class StereoTracker:
         dR, dt = vel if has_vel else (None, None)
         inputs = self._track_inputs(state, prev_obs, prev_octave, prev_angle, R, t, vel,
                                     window, th_local)
-        outs = track_step_impl(
-            state, prev_obs, prev_octave, prev_angle, R, t, dR, dt, frame, window,
-            self.cam, self.bf, self.match_radius[0], self.match_radius[1], th_local,
-            self.cfg, has_vel=has_vel, device_retry=self.pipelined)
+        with tracing.span("track_step"):
+            outs = track_step_impl(
+                state, prev_obs, prev_octave, prev_angle, R, t, dR, dt, frame, window,
+                self.cam, self.bf, self.match_radius[0], self.match_radius[1], th_local,
+                self.cfg, has_vel=has_vel, device_retry=self.pipelined)
         if self.pipelined and self.device.type == "cuda":
             outs = (*outs[:3], HostPull(outs[3]), *outs[4:])
         return inputs, outs
@@ -689,7 +703,7 @@ class StereoTracker:
         if self.track_state == TrackState.NOT_INITIALIZED:
             self._initialize(frame)
             self._record(ts)
-            return self.R.cpu().numpy(), self.t.cpu().numpy(), self.track_state
+            return self._pose_host() + (self.track_state,)
         if (self.track_state in (TrackState.RECENTLY_LOST, TrackState.LOST)
                 and (self.relocalizer is not None or self.atlas is not None)):
             return self._recover(frame, ts)
@@ -740,14 +754,15 @@ class StereoTracker:
                 if self.atlas is not None:
                     self._spawn_new_map()
         self._record(ts)
-        return self.R.cpu().numpy(), self.t.cpu().numpy(), self.track_state
+        return self._pose_host() + (self.track_state,)
 
     def _finalize_track(self, frame, ts, R2, t2, cur_obs, packed, R_pred, t_pred,
                         window, dispatch_epoch=None, vel_cand=None):
         """Pull the step's decision vector and run the frame's decisions:
         fallback, lost transition, velocity, keyframe insertion, record."""
         cfg = self.cfg
-        packed = pull(packed)               # the one device->host pull
+        with tracing.span("track.pull.wait"):
+            packed = pull(packed)           # the one device->host pull
         corrected_in_flight = False
         if (dispatch_epoch is not None and self._corr_epoch != dispatch_epoch
                 and self._corr_delta is not None):
@@ -770,10 +785,12 @@ class StereoTracker:
         fell_back = False
         if n_inl2_i < cfg.min_kf_inliers and self.ref_kf >= 0:
             fell_back = True
-            R2, t2, cur_obs, packed = track_reference_kf(
-                self.state, self.ref_kf, R_pred, t_pred, frame, window, self.cam,
-                self.bf, self._local_search_th(), cfg)
-            packed = packed.cpu().numpy()
+            with tracing.span("track_ref_kf"):
+                R2, t2, cur_obs, packed = track_reference_kf(
+                    self.state, self.ref_kf, R_pred, t_pred, frame, window, self.cam,
+                    self.bf, self._local_search_th(), cfg)
+                with tracing.span("track_ref_kf.wait"):
+                    packed = packed.cpu().numpy()
             self._frame_stats = packed[12:].astype(np.int64)
             n_inl2_i = int(self._frame_stats[1])
             self.last_n_inliers = n_inl2_i
@@ -781,7 +798,7 @@ class StereoTracker:
             self.track_state = TrackState.RECENTLY_LOST
             self._set_frame(frame, R_pred, t_pred, cur_obs)
             self._record(ts)
-            self._last_pose = (self.R.cpu().numpy(), self.t.cpu().numpy())
+            self._last_pose = self._pose_host()
             return self._last_pose + (self.track_state,)
         self.track_state = TrackState.OK
         self.lost_frames = 0
@@ -799,8 +816,7 @@ class StereoTracker:
             self._insert_keyframe(frame, R2, t2, cur_obs)
         if self._corr_epoch != epoch:
             # a loop correction re-based the tracker onto the corrected map
-            R_np = self.R.cpu().numpy().astype(np.float64)
-            t_np = self.t.cpu().numpy().astype(np.float64)
+            R_np, t_np = (x.astype(np.float64) for x in self._pose_host())
             self.vel = None
         else:
             R_np = packed[:9].reshape(3, 3).astype(np.float64)
@@ -811,9 +827,14 @@ class StereoTracker:
 
     # -- internals --
 
+    def _pose_host(self) -> tuple:
+        """The live pose (R_cw, t_cw) pulled to the host."""
+        with tracing.span("record.wait"):
+            return self.R.cpu().numpy(), self.t.cpu().numpy()
+
     def _record(self, ts):
-        self._record_np(ts, self.R.cpu().numpy().astype(np.float64),
-                        self.t.cpu().numpy().astype(np.float64))
+        R_cw, t_cw = self._pose_host()
+        self._record_np(ts, R_cw.astype(np.float64), t_cw.astype(np.float64))
 
     def _record_np(self, ts, R_cw, t_cw):
         """Log the pose relative to the reference keyframe (absolute before
@@ -973,9 +994,10 @@ class StereoTracker:
         neighbors = [-1] * lcfg.n_neighbors
         for i, kk in enumerate(self.kf_order[::-1][:lcfg.n_neighbors]):
             neighbors[i] = kk
-        self.state, self._kf_nlm_dev = kf_create_map(
-            self.state, kf_id, self.n_lm, frame, R, t, cur_obs, prev_kf,
-            neighbors, self.cam, self.bf, self.cfg, lcfg)
+        with tracing.span("kf_create_map"):
+            self.state, self._kf_nlm_dev = kf_create_map(
+                self.state, kf_id, self.n_lm, frame, R, t, cur_obs, prev_kf,
+                neighbors, self.cam, self.bf, self.cfg, lcfg)
         if kf_id == self.n_kf:
             self.n_kf += 1
         self.kf_order.append(kf_id)
@@ -986,9 +1008,12 @@ class StereoTracker:
         if self.async_kf:
             self._refresh_ref_pose(kf_id, (R.cpu().numpy().astype(np.float64),
                                            t.cpu().numpy().astype(np.float64)))
-            self._kf_jobs.append(functools.partial(self._kf_stage_ba, kf_id))
-            self._kf_jobs.append(functools.partial(self._kf_stage_cull, kf_id, seq))
-            self._kf_jobs.append(functools.partial(self._kf_stage_finalize, kf_id))
+            # each job's spans carry this frame as their cause
+            self._kf_jobs.append(tracing.job(functools.partial(self._kf_stage_ba, kf_id)))
+            self._kf_jobs.append(tracing.job(functools.partial(self._kf_stage_cull, kf_id,
+                                                               seq)))
+            self._kf_jobs.append(tracing.job(functools.partial(self._kf_stage_finalize,
+                                                               kf_id)))
             return kf_id
         self._kf_stage_ba(kf_id)
         self._kf_stage_cull(kf_id, seq)
@@ -1015,23 +1040,25 @@ class StereoTracker:
         return self._free_kf_slots[0] if self._free_kf_slots else self.n_kf
 
     def _kf_stage_ba(self, kf_id):
-        self.state, n_tr = kf_ba_stage(self.state, kf_id, self.kf_order[0],
-                                       self.cam, self.bf, self.cfg)
+        with tracing.span("kf_local_ba"):
+            self.state, n_tr = kf_ba_stage(self.state, kf_id, self.kf_order[0],
+                                           self.cam, self.bf, self.cfg)
         self.ba_truncated = self.ba_truncated + n_tr
 
     def _kf_stage_cull(self, kf_id, seq):
-        lcfg = self._lm_cfg()
-        if seq % 2 == 0:
-            g = lcfg.cull_grace_kfs
-            recent = [-1] * g
-            for i, k in enumerate(self.kf_order[-g:]):
-                recent[i] = k
-            self.state = lm_mod.cull_landmarks(self.state, self.n_kf, lcfg,
-                                               recent_slots=recent)
-        if (self.cfg.enable_kf_culling and self._can_cull()
-                and seq % self.cfg.kf_cull_every == 0
-                and len(self.kf_order) > self.cfg.ba_window + 2):
-            self._cull_keyframes()
+        with tracing.span("kf_cull"):
+            lcfg = self._lm_cfg()
+            if seq % 2 == 0:
+                g = lcfg.cull_grace_kfs
+                recent = [-1] * g
+                for i, k in enumerate(self.kf_order[-g:]):
+                    recent[i] = k
+                self.state = lm_mod.cull_landmarks(self.state, self.n_kf, lcfg,
+                                                   recent_slots=recent)
+            if (self.cfg.enable_kf_culling and self._can_cull()
+                    and seq % self.cfg.kf_cull_every == 0
+                    and len(self.kf_order) > self.cfg.ba_window + 2):
+                self._cull_keyframes()
 
     def _can_cull(self) -> bool:
         """Subclass gate (the inertial tracker culls only after IMU init)."""
@@ -1062,43 +1089,44 @@ class StereoTracker:
         """Loop detection on the new keyframe; after a correction, fuse
         duplicates across the seam, run a welding local BA around the
         keyframe and re-base the tracker onto the corrected map."""
-        mg = self.loop_closer.cfg.min_gap_kfs
-        self.state, res = self.loop_closer.on_keyframe(
-            self.state, kf_id, self.n_kf, recent_slots=self.kf_order[-mg:])
-        if res is None or not res.corrected:
-            return
-        self._loop_seam_fuse(kf_id, res.cand_id)
-        self._loop_weld_ba(kf_id)
-        self._post_loop_gba(kf_id)
-        self._corr_epoch += 1
-        if self.ref_kf >= 0:
-            # the world-to-world delta of this correction, for the poses in
-            # flight: D = T_rw_old^-1 T_rw_new of the reference keyframe
-            R_rw, t_rw = self._ref_pose
-            new = torch.cat([self.state.kf_R[self.ref_kf].reshape(-1),
-                             self.state.kf_t[self.ref_kf]]).cpu().numpy().astype(np.float64)
-            R_new, t_new = new[:9].reshape(3, 3), new[9:]
-            Rd, td = R_rw.T @ R_new, R_rw.T @ (t_new - t_rw)
-            if self._corr_delta is None:
-                self._corr_delta = (Rd, td)
+        with tracing.span("loop"):
+            mg = self.loop_closer.cfg.min_gap_kfs
+            self.state, res = self.loop_closer.on_keyframe(
+                self.state, kf_id, self.n_kf, recent_slots=self.kf_order[-mg:])
+            if res is None or not res.corrected:
+                return
+            self._loop_seam_fuse(kf_id, res.cand_id)
+            self._loop_weld_ba(kf_id)
+            self._post_loop_gba(kf_id)
+            self._corr_epoch += 1
+            if self.ref_kf >= 0:
+                # the world-to-world delta of this correction, for the poses in
+                # flight: D = T_rw_old^-1 T_rw_new of the reference keyframe
+                R_rw, t_rw = self._ref_pose
+                new = torch.cat([self.state.kf_R[self.ref_kf].reshape(-1),
+                                 self.state.kf_t[self.ref_kf]]).cpu().numpy().astype(np.float64)
+                R_new, t_new = new[:9].reshape(3, 3), new[9:]
+                Rd, td = R_rw.T @ R_new, R_rw.T @ (t_new - t_rw)
+                if self._corr_delta is None:
+                    self._corr_delta = (Rd, td)
+                else:
+                    # compose onto an unconsumed delta (the live pose below
+                    # takes only this one: the earlier one moved it already)
+                    Rp, tp = self._corr_delta
+                    self._corr_delta = (Rp @ Rd, Rp @ td + tp)
+            if self.async_kf and self.ref_kf >= 0:
+                # the tracker has moved past this keyframe: re-base its live pose
+                # through the delta
+                R_np = self.R.cpu().numpy().astype(np.float64)
+                t_np = self.t.cpu().numpy().astype(np.float64)
+                self.R = torch.as_tensor(R_np @ Rd, dtype=torch.float32, device=self.device)
+                self.t = torch.as_tensor(R_np @ td + t_np, dtype=torch.float32,
+                                         device=self.device)
+                self._refresh_ref_pose(self.ref_kf, (R_new, t_new))
             else:
-                # compose onto an unconsumed delta (the live pose below
-                # takes only this one: the earlier one moved it already)
-                Rp, tp = self._corr_delta
-                self._corr_delta = (Rp @ Rd, Rp @ td + tp)
-        if self.async_kf and self.ref_kf >= 0:
-            # the tracker has moved past this keyframe: re-base its live pose
-            # through the delta
-            R_np = self.R.cpu().numpy().astype(np.float64)
-            t_np = self.t.cpu().numpy().astype(np.float64)
-            self.R = torch.as_tensor(R_np @ Rd, dtype=torch.float32, device=self.device)
-            self.t = torch.as_tensor(R_np @ td + t_np, dtype=torch.float32,
-                                     device=self.device)
-            self._refresh_ref_pose(self.ref_kf, (R_new, t_new))
-        else:
-            self.R = self.state.kf_R[kf_id].clone()
-            self.t = self.state.kf_t[kf_id].clone()
-        self.vel = None
+                self.R = self.state.kf_R[kf_id].clone()
+                self.t = self.state.kf_t[kf_id].clone()
+            self.vel = None
 
     def _loop_seam_fuse(self, kf_id, cand):
         """Fuse the keyframe's landmarks with those of the loop keyframe's
@@ -1120,28 +1148,31 @@ class StereoTracker:
         and pose, then the Atlas merge; the frame's bindings follow the
         (fused / culled / merged) keyframe row. Returns the keyframe's slot
         after a merge."""
-        if self.loop_closer is not None and self._loop_enabled():
-            self._kf_stage_loop(kf_id)
-        counts = torch.cat([
-            torch.stack([self._kf_nlm_dev.to(torch.float32),
-                         (self.state.kf_obs[kf_id] >= 0).sum().to(torch.float32)]),
-            self.state.kf_R[kf_id].reshape(-1), self.state.kf_t[kf_id]]).cpu().numpy()
-        self.n_lm = int(counts[0])
-        self.ref_inliers = max(int(counts[1]), 1)
-        if not self.async_kf or self.ref_kf == kf_id:
-            self._refresh_ref_pose(kf_id, (counts[2:11].reshape(3, 3).astype(np.float64),
-                                           counts[11:14].astype(np.float64)))
-        if self.atlas is not None and self.atlas.stored:
-            res = self.atlas.try_merge(self.state, kf_id, self.n_kf, self.n_lm,
-                                       gravity_aligned=self._gravity_aligned())
-            if res is not None:
-                kf_id = self._adopt_merge(res, kf_id)
-                self.ref_inliers = max(int((self.state.kf_obs[kf_id] >= 0).sum()), 1)
-        if not self.async_kf:
-            # the frame's bindings follow the keyframe row; in async mode
-            # later frames have moved on
-            self.prev_obs = self.state.kf_obs[kf_id].clone()
-        return kf_id
+        with tracing.span("kf_finalize"):
+            if self.loop_closer is not None and self._loop_enabled():
+                self._kf_stage_loop(kf_id)
+            counts = torch.cat([
+                torch.stack([self._kf_nlm_dev.to(torch.float32),
+                             (self.state.kf_obs[kf_id] >= 0).sum().to(torch.float32)]),
+                self.state.kf_R[kf_id].reshape(-1), self.state.kf_t[kf_id]])
+            with tracing.span("kf_finalize.wait"):
+                counts = counts.cpu().numpy()
+            self.n_lm = int(counts[0])
+            self.ref_inliers = max(int(counts[1]), 1)
+            if not self.async_kf or self.ref_kf == kf_id:
+                self._refresh_ref_pose(kf_id, (counts[2:11].reshape(3, 3).astype(np.float64),
+                                               counts[11:14].astype(np.float64)))
+            if self.atlas is not None and self.atlas.stored:
+                res = self.atlas.try_merge(self.state, kf_id, self.n_kf, self.n_lm,
+                                           gravity_aligned=self._gravity_aligned())
+                if res is not None:
+                    kf_id = self._adopt_merge(res, kf_id)
+                    self.ref_inliers = max(int((self.state.kf_obs[kf_id] >= 0).sum()), 1)
+            if not self.async_kf:
+                # the frame's bindings follow the keyframe row; in async mode
+                # later frames have moved on
+                self.prev_obs = self.state.kf_obs[kf_id].clone()
+            return kf_id
 
     def _cull_keyframes(self):
         """Excise redundant keyframes (protected: the first, the BA window and
@@ -1153,13 +1184,15 @@ class StereoTracker:
         for i, k in enumerate(self.kf_order[-w:] + [self.kf_order[0], self.ref_kf]):
             protect[i] = k
         mask = lm_mod.redundant_keyframes(self.state, protect, self._lm_cfg())
-        mask = mask.cpu().numpy()
+        with tracing.span("kf_cull.wait"):
+            mask = mask.cpu().numpy()
         cand = [k for k in self.kf_order if mask[k]]
         if not cand:
             return
         posn = {k: i for i, k in enumerate(self.kf_order)}
-        cov_rows = ms.covisibility(self.state)[
-            torch.as_tensor(cand, device=self.device)].cpu().numpy()
+        cov_rows = ms.covisibility(self.state)[torch.as_tensor(cand, device=self.device)]
+        with tracing.span("kf_cull.wait"):
+            cov_rows = cov_rows.cpu().numpy()
         cull = []
         for j, k in enumerate(cand):
             if len(cull) >= cfg.kf_cull_max:
@@ -1179,8 +1212,9 @@ class StereoTracker:
                 i -= 1
             parents.append(self.kf_order[i] if i >= 0 else -1)
         ids = torch.as_tensor(cull + parents, device=self.device)
-        Rs = self.state.kf_R[ids].cpu().numpy().astype(np.float64)
-        ts_ = self.state.kf_t[ids].cpu().numpy().astype(np.float64)
+        with tracing.span("kf_cull.wait"):
+            Rs = self.state.kf_R[ids].cpu().numpy().astype(np.float64)
+            ts_ = self.state.kf_t[ids].cpu().numpy().astype(np.float64)
         rebase = {}
         for i, (k, p) in enumerate(zip(cull, parents)):
             if p < 0:

@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from orb_slam3_vio_fixes_tpu_torch.runtime import tracing
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("fast_score.cu", "hamming.cu")
@@ -81,8 +83,9 @@ def build() -> tuple[Path, float]:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    so, _ = build()
-    lib = ctypes.CDLL(str(so))
+    with tracing.span("kernels.build"):
+        so, _ = build()
+        lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)

@@ -12,8 +12,9 @@ still pays is I/O: a decoder thread prefetches and decodes frame t+1 through
 a bounded native queue while the device tracks frame t. The decoder thread
 handles numpy arrays only; every host-to-device copy happens in the tracking
 thread, inside the facade. Stage timings are a first-class StageTimes struct
-with the reference's stage taxonomy; the decoder and the tracking thread
-append to it without a lock (a list append is atomic under the GIL).
+(runtime/tracing.py) with the reference's stage taxonomy; the decoder and
+the tracking thread append to it without a lock (a list append is atomic
+under the GIL).
 """
 
 from __future__ import annotations
@@ -21,59 +22,13 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Optional
 
 import numpy as np
 
 from orb_slam3_vio_fixes_tpu_torch.runtime import native as rt_native
+from orb_slam3_vio_fixes_tpu_torch.runtime.tracing import StageTimes
 from orb_slam3_vio_fixes_tpu_torch.sensors import Sensor
-
-
-class StageTimes:
-    """REGISTER_TIMES analogue: named per-stage duration series."""
-
-    def __init__(self):
-        self.series: Dict[str, List[float]] = {}
-
-    def add(self, stage: str, seconds: float) -> None:
-        self.series.setdefault(stage, []).append(seconds)
-
-    class _Scope:
-        def __init__(self, st: "StageTimes", stage: str):
-            self.st, self.stage = st, stage
-
-        def __enter__(self):
-            self.t0 = time.perf_counter()
-
-        def __exit__(self, *exc):
-            self.st.add(self.stage, time.perf_counter() - self.t0)
-
-    def scope(self, stage: str) -> "_Scope":
-        return self._Scope(self, stage)
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        out = {}
-        for k, v in self.series.items():
-            a = np.asarray(v)
-            out[k] = {
-                "mean_ms": float(a.mean() * 1e3),
-                "std_ms": float(a.std() * 1e3),
-                "count": int(a.size),
-            }
-        return out
-
-    def report(self) -> str:
-        """ExecMean.txt-style report (src/Tracking.cc:263-352)."""
-        lines = ["stage, mean_ms, std_ms, count"]
-        for k, s in sorted(self.summary().items()):
-            lines.append(
-                f"{k}, {s['mean_ms']:.3f}, {s['std_ms']:.3f}, {s['count']}"
-            )
-        return "\n".join(lines)
-
-    def save(self, path: str) -> None:
-        with open(path, "w") as f:
-            f.write(self.report() + "\n")
 
 
 @dataclasses.dataclass

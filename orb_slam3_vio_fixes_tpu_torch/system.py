@@ -35,6 +35,7 @@ from orb_slam3_vio_fixes_tpu_torch.io.settings import Settings, load_settings
 from orb_slam3_vio_fixes_tpu_torch.ops import orb
 from orb_slam3_vio_fixes_tpu_torch.parallel.mesh import Mesh
 from orb_slam3_vio_fixes_tpu_torch.ops import rectify as rec
+from orb_slam3_vio_fixes_tpu_torch.runtime import tracing
 from orb_slam3_vio_fixes_tpu_torch.sensors import Sensor
 from orb_slam3_vio_fixes_tpu_torch.slam_map import atlas as atlas_mod
 from orb_slam3_vio_fixes_tpu_torch.slam_map import map_state as ms
@@ -82,7 +83,12 @@ class SLAMSystem:
                  map_cfg: Optional[ms.MapConfig] = None,
                  tracker_cfg: Optional[trk.TrackerConfig] = None, mesh=None,
                  device="cuda"):
-        determinism.enable()
+        with tracing.span("facade"):
+            self._setup(settings, sensor, vocab, map_cfg, tracker_cfg, mesh, device)
+
+    def _setup(self, settings, sensor, vocab, map_cfg, tracker_cfg, mesh, device):
+        with tracing.span("facade.determinism"):
+            determinism.enable()
         self.device = _device(device)
         if mesh is not None:
             _check_mesh(mesh, self.device)
@@ -94,7 +100,8 @@ class SLAMSystem:
         if isinstance(vocab, str):
             if vocab != "default":
                 raise ValueError(f"unknown vocabulary spec {vocab!r}")
-            vocab = voc.default_vocabulary(self.device)
+            with tracing.span("facade.vocabulary"):
+                vocab = voc.default_vocabulary(self.device)
         self.vocab = vocab
 
         # distorted rigs: remaps, and cam1 / bf rewritten before the trackers
@@ -198,12 +205,14 @@ class SLAMSystem:
         return imu if imu is not None else np.zeros((0, 7), np.float32)
 
     def track_stereo(self, img_l, img_r, ts: float, imu=None):
-        img_l, img_r = self._rectify_pair(img_l, img_r)
-        if self.sensor == Sensor.IMU_STEREO:
-            return self.tracker.process_stereo_inertial(img_l, img_r, ts, self._no_imu(imu))
-        if self.sensor != Sensor.STEREO:
-            raise ValueError(f"track_stereo called in {self.sensor} mode")
-        return self.tracker.process_stereo(img_l, img_r, ts)
+        with tracing.span("track_stereo", root=True):
+            img_l, img_r = self._rectify_pair(img_l, img_r)
+            if self.sensor == Sensor.IMU_STEREO:
+                return self.tracker.process_stereo_inertial(img_l, img_r, ts,
+                                                            self._no_imu(imu))
+            if self.sensor != Sensor.STEREO:
+                raise ValueError(f"track_stereo called in {self.sensor} mode")
+            return self.tracker.process_stereo(img_l, img_r, ts)
 
     def track_rgbd(self, img, depth, ts: float, imu=None):
         if not self.sensor.is_rgbd:
