@@ -59,8 +59,8 @@ GRAVITY_SETTLE_S = 5.0
 
 
 class InertialConfig(NamedTuple):
-    frame_samples: int = 32     # IMU samples per frame window (zero padded)
-    kf_samples: int = 512       # per keyframe window
+    frame_samples: int = 32     # capacity of a frame's IMU window (samples)
+    kf_samples: int = 512       # capacity of a keyframe pair's window
     init_min_kfs: int = 5
     init_min_time: float = 0.95
     vi_window: int = 8
@@ -70,6 +70,33 @@ class InertialConfig(NamedTuple):
     # a diverged IMU state (forces an active-map reset)
     recently_lost_time: float = 5.0
     max_speed: float = 25.0
+
+
+def pack_imu(windows, capacity: int, count: bool = True) -> np.ndarray:
+    """(P, S, 7) float32 block of P host sample windows (rows [acc (3),
+    gyro (3), dt], front-packed; None for no window), each cut to `capacity`
+    rows, the rest zero. S is the longest window's real length, 1 + the
+    index of its last row with dt != 0 (not the count of such rows), at
+    least 1. A row with dt = 0 is an exact identity step of
+    `pre.integrate`, so the rows past S change nothing, and integrate takes
+    one step per row that exists. With `count`, S goes to the counter
+    imu.rows_integrated and capacity - S to imu.rows_skipped."""
+    ws = [None if w is None else np.asarray(w, np.float32).reshape(-1, 7)[:capacity]
+          for w in windows]
+    S = 1
+    for w in ws:
+        if w is not None:
+            real = np.flatnonzero(w[:, 6] != 0)
+            if real.size:
+                S = max(S, int(real[-1]) + 1)
+    out = np.zeros((len(ws), S, 7), np.float32)
+    for i, w in enumerate(ws):
+        if w is not None:
+            out[i, :min(len(w), S)] = w[:S]
+    if count:
+        tracing.count("imu.rows_integrated", S)
+        tracing.count("imu.rows_skipped", capacity - S)
+    return out
 
 
 class BodyState(NamedTuple):
@@ -373,16 +400,10 @@ class StereoInertialTracker(trk.StereoTracker):
 
     # -- helpers --
 
-    @staticmethod
-    def _pad(samples, S: int) -> np.ndarray:
-        out = np.zeros((S, 7), np.float32)
-        n = min(len(samples), S)
-        if n:
-            out[:n] = np.asarray(samples[:n], np.float32)
-        return out
-
     def _pad_kf_imu(self, samples) -> np.ndarray:
-        return self._pad(samples, self.icfg.kf_samples)
+        """The (S, 7) window a keyframe keeps: its real rows, at most
+        kf_samples."""
+        return pack_imu([samples], self.icfg.kf_samples, count=False)[0]
 
     def _body_of(self, R_cw, t_cw, v, bg, ba) -> BodyState:
         R_wb, p_wb = body_from_cam(R_cw, t_cw, *self.calib.cam_from_body())
@@ -464,7 +485,7 @@ class StereoInertialTracker(trk.StereoTracker):
                  packed) = vi_track_step(
                     self.state, self.prev_obs, self.prev_octave, self.prev_angle,
                     self.body, self.prior_H,
-                    self._upload(self._pad(imu_np, self.icfg.frame_samples)), frame,
+                    self._upload(pack_imu([imu_np], self.icfg.frame_samples)[0]), frame,
                     window, self.cam, self.bf, self.calib, th_n, th_w, th_l, cfg)
             with tracing.span("track.pull.wait"):
                 packed_np = packed.cpu().numpy()    # the one pull
@@ -657,8 +678,8 @@ class StereoInertialTracker(trk.StereoTracker):
     def _merged_init_pairs(self, K: int, min_dt: float = 0.2):
         """Keyframe pairs for the IMU initialisation, merged to span at least
         `min_dt` of IMU data each (short baselines bias the scale through
-        errors-in-variables). Returns (nodes, windows (maxP, 2S, 7), idx_i,
-        idx_j, valid), host arrays."""
+        errors-in-variables). Returns (nodes, windows (maxP, S, 7) with S at
+        most 2 kf_samples, idx_i, idx_j, valid), host arrays."""
         kf_ts = self.state.kf_ts.cpu().numpy()
         live = [k for k in self.kf_order if k < K]
         pos = {k: i for i, k in enumerate(live)}
@@ -666,9 +687,8 @@ class StereoInertialTracker(trk.StereoTracker):
         for k in live[1:]:
             if kf_ts[k] - kf_ts[nodes[-1]] >= min_dt or k == live[-1]:
                 nodes.append(k)
-        S2 = 2 * self.icfg.kf_samples
         maxP = self.cfg.map.max_keyframes - 1
-        wins = np.zeros((maxP, S2, 7), np.float32)
+        cats = [None] * maxP
         idx_i = np.zeros(maxP, np.int64)
         idx_j = np.zeros(maxP, np.int64)
         valid = np.zeros(maxP, bool)
@@ -676,31 +696,24 @@ class StereoInertialTracker(trk.StereoTracker):
             i, j = nodes[n], nodes[n + 1]
             rows = [w[w[:, 6] > 0] for m in live[pos[i] + 1:pos[j] + 1]
                     if (w := self.kf_windows.get(m)) is not None]
-            cat = np.concatenate(rows) if rows else np.zeros((0, 7), np.float32)
-            ns = min(len(cat), S2)
-            wins[n, :ns] = cat[:ns]
+            cats[n] = np.concatenate(rows) if rows else np.zeros((0, 7), np.float32)
             idx_i[n], idx_j[n] = i, j
-            valid[n] = ns > 0
-        return nodes, wins, idx_i, idx_j, valid
+            valid[n] = len(cats[n]) > 0
+        return nodes, pack_imu(cats, 2 * self.icfg.kf_samples), idx_i, idx_j, valid
 
     def _window_imu(self, window_ids):
         """(W-1, S, 7) sample windows joining consecutive window keyframes
         (newest-first ids) and their validity, on the device."""
-        W = len(window_ids)
-        out = np.zeros((W - 1, self.icfg.kf_samples, 7), np.float32)
-        valid = np.zeros(W - 1, bool)
-        for i in range(W - 1):
-            newer, older = window_ids[i], window_ids[i + 1]
-            if newer >= 0 and older >= 0 and newer in self.kf_windows:
-                out[i] = self.kf_windows[newer]
-                valid[i] = True
-        return self._upload(out), self._upload(valid)
+        wins = [self.kf_windows.get(newer) if newer >= 0 and older >= 0 else None
+                for newer, older in zip(window_ids[:-1], window_ids[1:])]
+        valid = np.array([w is not None for w in wins], bool)
+        return self._upload(pack_imu(wins, self.icfg.kf_samples)), self._upload(valid)
 
     def _full_map_imu_factors(self) -> vi_ba.VIInertialFactors:
         """Preintegration factors between all consecutive live keyframes,
         integrated at each pair's i-side bias (the full-map chain)."""
         maxP = self.cfg.map.max_keyframes - 1
-        wins = np.zeros((maxP, self.icfg.kf_samples, 7), np.float32)
+        wins = [None] * maxP
         idx = np.zeros((2, maxP), np.int64)
         valid = np.zeros(maxP, bool)
         n = 0
@@ -713,7 +726,8 @@ class StereoInertialTracker(trk.StereoTracker):
             valid[n] = bool((w[:, 6] > 0).any())
             n += 1
         idx_d = self._upload(idx)
-        pres = pre.integrate(self._upload(wins), self.state.kf_bg[idx_d[0]],
+        pres = pre.integrate(self._upload(pack_imu(wins, self.icfg.kf_samples)),
+                             self.state.kf_bg[idx_d[0]],
                              self.state.kf_ba[idx_d[0]], self.calib)
         return vi_ba.VIInertialFactors.from_preintegrations(
             idx_d[0], idx_d[1], pres, self._upload(valid))

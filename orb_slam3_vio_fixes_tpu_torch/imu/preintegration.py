@@ -7,7 +7,9 @@ runs a `lax.scan` over the samples and `vmap`s it over windows; here
 a leading batch of windows, so many windows cost the launches of one.
 
 Padding convention: rows with dt = 0 leave the state unchanged (Exp(0) = I),
-so fixed-capacity windows need no special casing.
+so windows of different lengths share one zero-padded block. Each row costs
+a step's launches, so the tracker builds a block only as long as its longest
+window (frontend/inertial_tracking.pack_imu).
 """
 
 from __future__ import annotations

@@ -109,6 +109,10 @@ COUNTERS = {
     "match.wide_retries": ("motion-model matches retried with the wide radius",
                            "layers: retry_share"),
     "loop.candidates": ("loop candidates retrieved", "[program] table"),
+    "imu.rows_integrated": ("rows of the IMU sample blocks handed to preintegration, one "
+                            "step each (inertial_tracking.pack_imu)", "[program] table"),
+    "imu.rows_skipped": ("the blocks' capacity rows left out as zero padding past the "
+                         "longest real window", "[program] table"),
 }
 
 

@@ -18,7 +18,9 @@ import torch
 from orb_slam3_vio_fixes_tpu.imu import preintegration as jpre
 from orb_slam3_vio_fixes_tpu.utils import lie as jlie
 from orb_slam3_vio_fixes_tpu_torch import convert
+from orb_slam3_vio_fixes_tpu_torch.frontend import inertial_tracking as tit
 from orb_slam3_vio_fixes_tpu_torch.imu import preintegration as tpre
+from orb_slam3_vio_fixes_tpu_torch.runtime import tracing
 
 torch.set_num_threads(2)
 
@@ -70,6 +72,49 @@ def test_integrate():
         check(got, ref)
         if n_used[2] == 0:   # an all-pad window is the identity
             assert torch.equal(got.dR[2], torch.eye(3))
+
+
+@pytest.mark.parametrize("capacity, n_used, dt_zero, batched", [
+    # mixed real lengths with an empty window; with one at full capacity
+    pytest.param(64, (0, 17, 3, 40), (), True, id="mixed_empty"),
+    pytest.param(64, (64, 0, 10), (), True, id="mixed_full"),
+    # real rows with dt = 0: one inside the longest window (a count of the
+    # dt > 0 rows would cut its tail), one that ends a window
+    pytest.param(64, (30, 12, 0), ((0, 10), (1, 11)), True, id="real_dt_zero"),
+    # the call sites at small capacities: a frame's window (unbatched), the
+    # window BA's W - 1 = 7 pairs, the IMU init's merged pairs at twice the
+    # keyframe capacity and the full-map chain over max_keyframes - 1 slots
+    pytest.param(16, (11,), (), False, id="frame"),
+    pytest.param(128, (27, 31, 19, 58, 0, 26, 30), (), True, id="window_ba"),
+    pytest.param(256, (61, 55, 88, 47) + (0,) * 27, (), True, id="imu_init"),
+    pytest.param(128, (27, 31, 19, 24, 33, 26, 30, 29, 25) + (0,) * 22, (), True,
+                 id="full_map"),
+])
+def test_integrate_trimmed_is_exact(capacity, n_used, dt_zero, batched):
+    """integrate on the blocks padded to their capacity and on the same
+    blocks cut by inertial_tracking.pack_imu: equal in every field. The
+    block is as long as the longest window up to its last row with
+    dt != 0, and the helper counts its rows and the ones it left out."""
+    rng = np.random.default_rng(capacity + len(n_used))
+    w = windows(rng, len(n_used), capacity, n_used)
+    for i, r in dt_zero:
+        w[i, r, 6] = 0.0
+    real = [np.flatnonzero(x[:, 6] != 0) for x in w]
+    S = max([1] + [int(r[-1]) + 1 for r in real if r.size])
+    assert S < capacity or capacity in n_used
+    tr = tracing.Tracer()
+    with tracing.traced(tr):
+        cut = tit.pack_imu([x[:n] for x, n in zip(w, n_used)], capacity)
+    assert cut.shape == (len(n_used), S, 7) and np.array_equal(cut, w[:, :S])
+    assert tr.counters == {"imu.rows_integrated": S, "imu.rows_skipped": capacity - S}
+    bg = torch.from_numpy(rng.normal(0, 0.01, (len(n_used), 3)).astype(np.float32))
+    ba = torch.from_numpy(rng.normal(0, 0.05, (len(n_used), 3)).astype(np.float32))
+    if not batched:
+        w, cut, bg, ba = w[0], cut[0], bg[0], ba[0]
+    full = tpre.integrate(torch.from_numpy(w), bg, ba, TCAL)
+    got = tpre.integrate(torch.from_numpy(cut), bg, ba, TCAL)
+    for f in tpre.Preintegrated._fields:
+        assert torch.equal(getattr(got, f), getattr(full, f)), f
 
 
 def test_bias_corrected_deltas_merge_predict(rng):

@@ -266,9 +266,9 @@ def test_post_merge_vi_ba_like_reference(seq, run, monkeypatch):
     adj, fixed = ttr.select_ba_window_impl(tt.state, new_kf, order[0], tt.cfg)
     masks = {}
 
-    def setup(tr, state):
+    def setup(tr, state, windows):
         tr.state = state
-        tr.kf_windows = dict(run["windows"])
+        tr.kf_windows = dict(windows)
         tr.kf_order, tr.n_kf, tr.n_lm = list(order), run["n_kf"], run["n_lm"]
         tr.imu_ready = True
         real = tr._run_full_inertial_ba
@@ -279,11 +279,15 @@ def test_post_merge_vi_ba_like_reference(seq, run, monkeypatch):
         tr._run_full_inertial_ba = captured
 
     jt = jax_tracker(seq)
+    # the port keeps each window's real rows, the JAX tracker all
+    # kf_samples of them
     setup(jt, jms.MapState(**{f: jnp.asarray(np.array(a, copy=True))
-                              for f, a in fields.items()}))
+                              for f, a in fields.items()}),
+          {k: np.pad(w, ((0, jt.icfg.kf_samples - len(w)), (0, 0)))
+           for k, w in run["windows"].items()})
     jt._post_merge(new_kf, 0, run["n_kf"], jnp.asarray(adj.numpy()),
                    jnp.asarray(fixed.numpy()))
-    setup(tt, tt.state)
+    setup(tt, tt.state, run["windows"])
     tt._post_merge(new_kf, 0, run["n_kf"], adj, fixed)
     np.testing.assert_array_equal(masks[tt], masks[jt])
     free = np.nonzero(~masks[tt])[0]

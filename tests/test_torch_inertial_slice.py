@@ -40,6 +40,7 @@ from orb_slam3_vio_fixes_tpu_torch.evaluation import ate
 from orb_slam3_vio_fixes_tpu_torch.frontend import inertial_tracking as tit
 from orb_slam3_vio_fixes_tpu_torch.frontend import tracking as ttr
 from orb_slam3_vio_fixes_tpu_torch.imu import preintegration as tpre
+from orb_slam3_vio_fixes_tpu_torch.runtime import tracing
 from orb_slam3_vio_fixes_tpu_torch.utils.cameras import Camera as TCamera
 
 from test_torch_slice import port_cfg
@@ -121,10 +122,29 @@ def jax_run(seq):
     return tr, drive(tr, seq), init
 
 
+KF_STATE = ("kf_valid", "kf_R", "kf_t", "kf_vel", "kf_bg", "kf_ba")
+
+
+def run_end(tr) -> dict:
+    """Copies of the trajectory and the keyframes' states (later tests go
+    on with the tracker)."""
+    return {"traj": tr.trajectory, "n_vi_ba": tr.n_vi_ba,
+            **{f: getattr(tr.state, f).clone() for f in KF_STATE}}
+
+
 @pytest.fixture(scope="module")
-def port_run(seq):
+def port_traced(seq):
+    """The port over every frame under a tracer: (tracker, drive's
+    outputs, the tracer's counters, run_end)."""
     tr = port_tracker(seq)
-    return tr, drive(tr, seq)
+    with tracing.traced(tracing.Tracer()) as tc:
+        out = drive(tr, seq)
+    return tr, out, tc.counters, run_end(tr)
+
+
+@pytest.fixture(scope="module")
+def port_run(port_traced):
+    return port_traced[:2]
 
 
 def test_tracks_like_reference(jax_run, port_run):
@@ -186,3 +206,32 @@ def test_port_inertial_slice_ate(seq, port_run):
                                seq.imu[-1])
     assert tr.track_state == ttr.TrackState.OK and tr.kf_order == [0]
     assert len(tr.trajectory) == N_FRAMES + 1
+
+
+def pack_at_capacity(windows, capacity, count=True):
+    """inertial_tracking.pack_imu as it was before the trim: every block
+    padded to its capacity."""
+    out = np.zeros((len(windows), capacity, 7), np.float32)
+    for i, w in enumerate(windows):
+        if w is not None:
+            w = np.asarray(w, np.float32).reshape(-1, 7)[:capacity]
+            out[i, :len(w)] = w
+    return out
+
+
+def test_trimmed_imu_blocks_match_padded(seq, port_traced, monkeypatch):
+    """The IMU blocks trimmed to their longest real window change nothing:
+    the run with every block padded to its capacity gives byte-equal frame
+    poses and keyframe poses, velocities and biases; the trim engaged."""
+    _, got, counters, end = port_traced
+    assert counters["imu.rows_skipped"] > 0 and counters["imu.rows_integrated"] > 0
+    monkeypatch.setattr(tit, "pack_imu", pack_at_capacity)
+    ref_tr = port_tracker(seq)
+    ref = drive(ref_tr, seq)
+    ref_end = run_end(ref_tr)
+    assert ref_end["n_vi_ba"] == end["n_vi_ba"] >= 2
+    assert all(np.array_equal(a[0], b[0]) and a[1:] == b[1:] for a, b in zip(got, ref))
+    for f in KF_STATE:
+        assert torch.equal(end[f], ref_end[f]), f
+    for (ts, R, t), (ts2, R2, t2) in zip(end["traj"], ref_end["traj"], strict=True):
+        assert ts == ts2 and np.array_equal(R, R2) and np.array_equal(t, t2)
